@@ -1,0 +1,448 @@
+"""Drive the PyTorch port's main path once on an NVIDIA GPU and check it.
+
+    python3 chip_smoke.py [--seed N]
+
+Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; exits non-zero, without
+the final ``{"ok": true, ...}`` line, on any failure (including no GPU, or
+a directory without the ``openfdcm_tpu_torch`` package).  Phases:
+
+1. device: the card's name and power limit, torch, CUDA and nvcc versions;
+2. build: compiles the four kernels (``openfdcm_tpu_torch/csrc``) for sm_90a;
+3. kernel vs plain: each kernel on the inputs it gets from a real build or
+   dispatch of the workload below, against its plain PyTorch version on CPU
+   copies of the same inputs — bit-equal; plus CUDA ``/`` and sqrt against
+   numpy on 1M random f32 pairs;
+4. slice: ``match_many(..., top_k=10, device="cuda")`` on a seeded synthetic
+   workload with the pose workload's sizes — 4 banks of 105 templates
+   (23-33 lines, 10-150 px), 10 scenes per bank (one planted template under
+   a rigid transform plus 120 clutter lines on a 640² canvas),
+   ``Dt3Params(30, 5.0, 1.0, L2)``, ``DefaultSearch(4, 10)``,
+   ``BatchOptimize(10)``, ``ExponentialPenalty(1.5)`` — with every kernel's
+   launch count, finite and repeatable top-10s, stage times, scenes/s and
+   each kernel's time beside its plain version's on the card;
+5. profile: one more slice run under ``torch.profiler`` — device time by
+   kernel and the device's busy share of the run.
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import torch  # noqa: E402
+
+import openfdcm_tpu_torch as of  # noqa: E402
+from openfdcm_tpu_torch.core import dt as dt_mod  # noqa: E402
+from openfdcm_tpu_torch.core import integral as integral_mod  # noqa: E402
+from openfdcm_tpu_torch.core.geometry import sqrt_f32  # noqa: E402
+from openfdcm_tpu_torch.matching import featuremap as fm_mod  # noqa: E402
+from openfdcm_tpu_torch.matching import optimize as opt_mod  # noqa: E402
+from openfdcm_tpu_torch.ops import build  # noqa: E402
+from openfdcm_tpu_torch.ops import integral as ops_integral  # noqa: E402
+from openfdcm_tpu_torch.ops import minplus as ops_minplus  # noqa: E402
+from openfdcm_tpu_torch.ops import prop as ops_prop  # noqa: E402
+from openfdcm_tpu_torch.ops import window as ops_window  # noqa: E402
+
+N_BANKS, N_TEMPLATES, N_SCENES, N_CLUTTER, CANVAS = 4, 105, 10, 120, 620
+TOP_K = 10
+
+# name -> (wrapper, plain version, CUDA source, TPU kernel it replaces)
+KERNELS = {
+    "K1_window_scores": (ops_window.window_scores, ops_window.window_scores_plain,
+                         "openfdcm_tpu_torch/csrc/window.cu",
+                         "openfdcm_tpu/ops/window_kernel.py:1080"),
+    "K2_minplus_rows": (ops_minplus.minplus_rows, ops_minplus.minplus_rows_plain,
+                        "openfdcm_tpu_torch/csrc/minplus.cu",
+                        "openfdcm_tpu/ops/minplus_kernel.py:121"),
+    "K3_propagate_orientation": (ops_prop.propagate_orientation,
+                                 ops_prop.propagate_orientation_plain,
+                                 "openfdcm_tpu_torch/csrc/prop.cu",
+                                 "openfdcm_tpu/ops/prop_kernel.py:47"),
+    "K4_sweep_scan": (ops_integral.sweep_scan, ops_integral.sweep_scan_plain,
+                      "openfdcm_tpu_torch/csrc/integral.cu",
+                      "openfdcm_tpu/ops/integral_kernel.py:81"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+# ---------------------------------------------------------------------------
+# workload
+# ---------------------------------------------------------------------------
+
+def _random_lines(rng, n, center_box, lmin=10.0, lmax=150.0):
+    c = rng.uniform(center_box[0], center_box[1], (n, 2))
+    ang = rng.uniform(0, np.pi, n)
+    half = rng.uniform(lmin, lmax, n)[:, None] / 2
+    d = np.stack([np.cos(ang), np.sin(ang)], -1) * half
+    return np.concatenate([c - d, c + d], -1).astype(np.float32)
+
+
+def make_workload(seed, n_banks=N_BANKS, n_templates=N_TEMPLATES,
+                  n_scenes=N_SCENES, n_clutter=N_CLUTTER, canvas=CANVAS):
+    """Seeded synthetic pose-shaped workload: per bank ``(templates, scenes,
+    planted template index per scene)``."""
+    rng = np.random.default_rng(seed)
+    banks = []
+    for _ in range(n_banks):
+        templates = [_random_lines(rng, int(rng.integers(23, 34)), (-100, 100))
+                     for _ in range(n_templates)]
+        scenes, planted = [], []
+        for _ in range(n_scenes):
+            j = int(rng.integers(n_templates))
+            th = rng.uniform(-np.pi, np.pi)
+            rot = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+            # template points lie within 100*sqrt(2) + 75 < 216 of its origin
+            shift = rng.uniform(216, canvas - 216, 2)
+            t = templates[j].reshape(-1, 2) @ rot.T + shift
+            clutter = _random_lines(rng, n_clutter, (75, canvas - 75))
+            lines = np.concatenate([t.reshape(-1, 4).astype(np.float32), clutter])
+            scenes.append(lines[rng.permutation(len(lines))])
+            planted.append(j)
+        banks.append((templates, scenes, planted))
+    return banks
+
+
+# ---------------------------------------------------------------------------
+# kernel inputs from a real run
+# ---------------------------------------------------------------------------
+
+class Recorder:
+    """Wraps module attributes so each call's arguments are recorded."""
+
+    def __init__(self, targets):
+        self.targets = targets          # {name: (module, attribute)}
+        self.calls = {name: [] for name in targets}
+
+    def __enter__(self):
+        self.saved = {}
+        for name, (mod, attr) in self.targets.items():
+            fn = getattr(mod, attr)
+            self.saved[name] = fn
+
+            # wraps() copies the launch counter attribute, which the wrapper
+            # body increments through its module-global name
+            @functools.wraps(fn)
+            def wrapped(*args, _fn=fn, _name=name, **kw):
+                self.calls[_name].append((args, kw))
+                return _fn(*args, **kw)
+            setattr(mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.saved[name])
+
+
+def mismatches(a, b):
+    """Elements that differ, NaN equal to NaN."""
+    a, b = a.cpu(), b.cpu()
+    both_nan = a.isnan() & b.isnan()
+    return int(((a != b) & ~both_nan).sum())
+
+
+def max_abs_err(a, b):
+    a, b = a.cpu().double(), b.cpu().double()
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def to_cpu(args):
+    return tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+
+
+def cuda_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device():
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"[device] nvidia-smi: {card}")
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} devices {torch.cuda.device_count()} "
+          f"name {torch.cuda.get_device_name(0)}")
+    nvcc = build.find_nvcc()
+    check(nvcc is not None, "nvcc not found")
+    ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    print(f"[device] nvcc: {ver[-1] if ver else '?'}")
+    return card
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    path = build.build()
+    build.library()
+    dt = time.perf_counter() - t0
+    print(f"[build] {path.name} in {dt:.2f} s")
+    log = path.with_suffix(".log")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build] {line.strip()}")
+    return dt
+
+
+def phase_kernels(banks, params, searcher, optimizer, penalty, device):
+    """Record every kernel's inputs from a one-scene build and a three-scene
+    search of bank 0, compare each kernel with its plain version on CPU
+    copies, and time both on the card."""
+    templates, scenes, _ = banks[0]
+    with Recorder({"K2_minplus_rows": (dt_mod, "minplus_rows"),
+                   "K3_propagate_orientation": (fm_mod, "propagate_orientation"),
+                   "K4_sweep_scan": (integral_mod, "sweep_scan")}) as build_rec:
+        of.build_featuremap_batch(scenes[:1], params, device=device)
+    with Recorder({"K1_window_scores": (ops_window, "window_scores")}) as search_rec:
+        bank, lengths = make_bank(templates, device)
+        of.match_many(scenes[:3], bank, params, searcher, optimizer,
+                      penalty=penalty, template_lengths=lengths, top_k=TOP_K,
+                      device=device, scene_chunk=3)
+    torch.cuda.synchronize()
+
+    window_calls = search_rec.calls["K1_window_scores"]
+    main_pass = [c for c in window_calls if c[1]["two_sided"]][:1]
+    ext_pass = [c for c in window_calls if not c[1]["two_sided"]
+                and c[1]["count"] == ops_window.K_POS][:1]
+    check(main_pass, "no two-sided window call was recorded")
+    # the one-sided pattern on the whole main-pass candidate set too: random
+    # resume steps, negative direction
+    (li, ep, sid, wt, tr, v, t0), _ = main_pass[0]
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    t0r = torch.randint(1, 60, (t0.shape[0],), generator=gen).float().to(device)
+    one_sided = [((li, ep, sid, wt, tr, (-v).contiguous(), t0r),
+                  dict(count=ops_window.K_POS, two_sided=False))]
+    cases = dict(build_rec.calls)
+    cases["K1_window_scores"] = main_pass + ext_pass + one_sided
+
+    report = {}
+    for name, (kernel, plain, _, _) in KERNELS.items():
+        calls = cases[name]
+        check(calls, f"no {name} call was recorded")
+        n_bad, err, shapes = 0, 0.0, []
+        for args, kw in calls:
+            got = kernel(*args, **kw)
+            want = plain(*to_cpu(args), **kw)
+            torch.cuda.synchronize()
+            n_bad += mismatches(got, want)
+            err = max(err, max_abs_err(got, want))
+            shapes.append((tuple(args[1].shape), kw["count"]) if kw
+                          else tuple(args[0].shape))
+        k_ms = sum(cuda_ms(lambda a=a, k=k: kernel(*a, **k), 10) for a, k in calls)
+        p_ms = sum(cuda_ms(lambda a=a, k=k: plain(*a, **k), 2) for a, k in calls)
+        print(f"[kernel] {name}: {len(calls)} call(s) {shapes}: mismatches "
+              f"{n_bad}, max_abs_err {err}, kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms (sum over the calls, on the card)")
+        check(n_bad == 0, f"{name}: {n_bad} elements differ from the plain version")
+        report[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+    return report
+
+
+def make_bank(templates, device):
+    """The bank padded to one shared (count, lmax) bucket for every object,
+    as ``bench.py`` pads the pose banks, with its template lengths."""
+    bank = of.prepare_templates(templates, lmax_to=40, count_to=128, device=device)
+    lengths = np.zeros(128, np.float32)
+    lengths[:len(templates)] = of.get_template_lengths(templates)
+    return bank, lengths
+
+
+def phase_ieee(device):
+    """CUDA ``/`` and sqrt against numpy's IEEE results."""
+    rng = np.random.default_rng(2)
+    n = 1_000_000
+    mag = lambda: 10.0 ** rng.uniform(-30, 38, n)
+    a = (rng.choice([-1, 1], n) * mag()).astype(np.float32)
+    b = (rng.choice([-1, 1], n) * mag()).astype(np.float32)
+    a[:1000] = rng.uniform(1e36, 3e38, 1000).astype(np.float32)   # huge quotients
+    b[:1000] = rng.uniform(1.0, 4.0, 1000).astype(np.float32)
+    with np.errstate(all="ignore"):
+        q_ref, s_ref = a / b, np.sqrt(np.abs(a))
+    ta, tb = torch.as_tensor(a, device=device), torch.as_tensor(b, device=device)
+    n_div = mismatches(ta / tb, torch.as_tensor(q_ref))
+    n_sqrt = mismatches(sqrt_f32(ta.abs()), torch.as_tensor(s_ref))
+    n_sqrt_raw = mismatches(torch.sqrt(ta.abs()), torch.as_tensor(s_ref))
+    n_huge = int((np.abs(q_ref) > 8.3e34).sum())
+    print(f"[ieee] {n} pairs ({n_huge} quotients above 8.3e34): divide "
+          f"mismatches {n_div}, sqrt (port) mismatches {n_sqrt}, "
+          f"torch.sqrt f32 mismatches {n_sqrt_raw}")
+    check(n_div == 0 and n_sqrt == 0, "CUDA divide or sqrt is not IEEE-rounded")
+
+
+def run_slice(banks, params, searcher, optimizer, penalty, device, timer):
+    results = []
+    for templates, scenes, _ in banks:
+        bank, lengths = make_bank(templates, device)
+        results.append(of.match_many(scenes, bank, params, searcher, optimizer,
+                                     penalty=penalty, template_lengths=lengths,
+                                     top_k=TOP_K, device=device, timer=timer))
+    torch.cuda.synchronize()
+    return results
+
+
+def phase_small_reference(banks, params, searcher, optimizer, penalty, device):
+    """The slice on CUDA against the same slice on the CPU (all plain
+    versions) on a small input: 8 templates, 2 scenes."""
+    templates, scenes, _ = banks[0]
+    small = templates[:8]
+    scene_list = [np.concatenate([templates[0] + 150.0, scenes[0][:20] * 0.4]),
+                  np.concatenate([templates[3] + 120.0, scenes[1][:20] * 0.4])]
+    lengths = of.get_template_lengths(small)
+    out = {}
+    for dev in (device, "cpu"):
+        out[dev] = of.match_many(scene_list, small, params, searcher, optimizer,
+                                 penalty=penalty, template_lengths=lengths,
+                                 top_k=TOP_K, device=dev)
+    n_rows = 0
+    for a_list, b_list in zip(out[device], out["cpu"]):
+        check(len(a_list) == len(b_list) > 0, "small input: top-k lengths differ")
+        for a, b in zip(a_list, b_list):
+            check(a.tmpl_idx == b.tmpl_idx, "small input: template ids differ")
+            # the penalty's powf may differ by an ulp between CUDA and the CPU
+            check(np.isclose(a.score, b.score, rtol=1e-6, atol=0),
+                  f"small input: score {a.score} vs {b.score}")
+            check(np.allclose(a.transform, b.transform, rtol=1e-6, atol=1e-5),
+                  "small input: transforms differ")
+            n_rows += 1
+    print(f"[reference] small input, CUDA vs CPU: {n_rows} top-k rows agree "
+          f"(ids equal, scores rtol 1e-6, transforms atol 1e-5)")
+
+
+def phase_slice(banks, params, searcher, optimizer, penalty, device):
+    counters = {name: k[0] for name, k in KERNELS.items()}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    opt_mod.host_sync.count = 0
+    timer = of.StageTimer()
+    t0 = time.perf_counter()
+    first = run_slice(banks, params, searcher, optimizer, penalty, device, timer)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    syncs = opt_mod.host_sync.count
+    print(f"[slice] launches {launches} host syncs {syncs}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+
+    timer2 = of.StageTimer()
+    t0 = time.perf_counter()
+    second = run_slice(banks, params, searcher, optimizer, penalty, device, timer2)
+    wall2 = time.perf_counter() - t0
+
+    n_scenes = sum(len(s) for _, s, _ in banks)
+    hits = 0
+    for (_, _, planted), r1, r2 in zip(banks, first, second):
+        for matches, again, j in zip(r1, r2, planted):
+            check(len(matches) > 0, "a scene has an empty top-k")
+            for m in matches:
+                check(np.isfinite(m.score) and np.isfinite(m.transform).all()
+                      and m.transform.shape == (2, 3), "non-finite match")
+            check(len(matches) == len(again) and all(
+                a.tmpl_idx == b.tmpl_idx and a.score == b.score
+                and np.array_equal(a.transform, b.transform)
+                for a, b in zip(matches, again)), "two runs gave different top-k")
+            hits += any(m.tmpl_idx == j for m in matches)
+    print(f"[slice] {n_scenes} scenes, top-{TOP_K} non-empty, finite, repeatable; "
+          f"planted template in the top-{TOP_K}: {hits}/{n_scenes} "
+          f"({hits / n_scenes:.3f})")
+    for name, t, w in (("run 1", timer, wall), ("run 2", timer2, wall2)):
+        stages = {k: round(v, 4) for k, v in t.totals.items()}
+        print(f"[slice] {name}: {w:.4f} s, {n_scenes / w:.3f} scenes/s, "
+              f"stages (s) {stages}")
+    return launches
+
+
+def phase_profile(banks, params, searcher, optimizer, penalty, device, top=20):
+    """One more slice run under ``torch.profiler``: device time by kernel
+    name, the device's busy share of the run's wall time, and the share of
+    device time in the port's four kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_slice(banks, params, searcher, optimizer, penalty, device, None)
+        wall = time.perf_counter() - t0
+    # device-side events only: the ops that launched them report the same time
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows)
+    ours = sum(r[2] for r in rows if any(
+        k in r[0] for k in ("minplus_rows_kernel(", "prop_kernel(",
+                            "sweep_kernel(", "window_kernel(")))
+    print(f"[profile] wall {wall * 1e3:.3f} ms (profiled), device busy "
+          f"{busy:.3f} ms ({busy / (wall * 1e3):.3f} of wall), the four "
+          f"kernels {ours:.3f} ms ({ours / max(busy, 1e-9):.3f} of device time)")
+    for name, count, ms in rows[:top]:
+        print(f"[profile] {ms:10.3f} ms {count:7d}x  {name[:110]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    device = "cuda"
+    card = phase_device()
+    phase_build()
+    banks = make_workload(args.seed)
+    params = of.Dt3Params(30, 5.0, 1.0, of.Distance.L2)
+    searcher = of.DefaultSearch(4, 10)
+    optimizer = of.BatchOptimize(10)
+    penalty = of.ExponentialPenalty(1.5)
+    cfg = (params, searcher, optimizer, penalty, device)
+    report = phase_kernels(banks, *cfg)
+    phase_ieee(device)
+    phase_small_reference(banks, *cfg)
+    launches = phase_slice(banks, *cfg)
+    phase_profile(banks, *cfg)
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=launches[name], **report[name])
+               for name, (_, _, src, rep) in KERNELS.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(f"[device] {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        sys.exit(1)

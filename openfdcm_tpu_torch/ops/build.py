@@ -1,0 +1,137 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with :mod:`ctypes`.  No
+PyTorch header is compiled, which keeps the build short.  The library lands in
+``build/openfdcm_tpu_torch/`` beside the package, named by a hash of the
+sources and flags, so an edited source is never served by a stale build.
+
+Nothing here runs at import time: this module imports on hosts without
+``nvcc`` or a GPU, where only the kernels' plain PyTorch versions run.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "openfdcm_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry points and their argument types (pointers and the stream last
+# are c_void_p: ctypes would otherwise pass a Python int as a 32-bit int).
+SIGNATURES = {
+    "fdcm_minplus_rows": [_P, _P, _P, _L, _I, _P],
+    "fdcm_prop": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _P],
+    "fdcm_sweep": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _P],
+    "fdcm_window": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                    _I, _I, _P],
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def find_nvcc() -> str | None:
+    """``nvcc`` from ``PATH``, else the CUDA toolkit's default location."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    return str(default) if default.exists() else None
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libopenfdcm_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernel library unless an up-to-date one exists; returns
+    its path.  Raises ``RuntimeError`` naming the nvcc command on failure.
+    The compiler's register and spill report goes to ``<library>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("cannot build the CUDA kernels: nvcc not found on "
+                           "PATH or at /usr/local/cuda/bin/nvcc")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                               f"{res.stdout}{res.stderr}")
+        out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + res.stdout
+                                           + res.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.fdcm_error_string.argtypes = [ctypes.c_int]
+    lib.fdcm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """The wrapper rule: ``False`` (run the plain version) when the tensors
+    lie on the CPU, ``True`` (launch the kernel) when they lie on one CUDA
+    device; anything else raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        return True
+    raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """Raise unless ``t`` has the dtype, rank and contiguity a kernel takes."""
+    if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {ndim}-d {dtype} tensor, "
+                         f"got {tuple(t.shape)} {t.dtype} "
+                         f"contiguous={t.is_contiguous()}")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry ``name`` on ``device``'s current stream; raise if the
+    launch failed (the C function returns ``cudaGetLastError()``)."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({lib.fdcm_error_string(rc).decode()})")

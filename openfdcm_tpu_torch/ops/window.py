@@ -1,0 +1,109 @@
+"""Kernel K1: FDCM window scores.
+
+For each candidate ``c`` and step lane ``k`` the score is
+
+    sum over lines l, in line order, of  wt[c,l] * |LI[p1 + tr] - LI[p2 + tr]|
+
+with ``tr = scene_tr + m * v`` and ``m = t0[c] + lane(k)``, each product and
+sum rounded to f32 in the reference's op order (``dt3cpu.cpp:126-179``:
+``tr`` first, then ``p = e + tr``, int-truncated).  Probes gather from the
+flattened LI stack ``(S, D, H, W)`` at ``sid * H * W + y * W + x``, clamped
+to the stack as ``jnp.take(..., mode="clip")`` does
+(``featuremap.py:658-659``).  Lines of weight 0 are skipped.
+
+Lane patterns: two-sided (128 lanes, the main pass: ``lane(k) = k`` for
+``k < 64``, ``-(k - 63)`` above) or one-sided (``lane(k) = k``, ``count``
+lanes: the straggler extension pass and the walk backstops).
+
+Replaces ``openfdcm_tpu/ops/window_kernel.py::window_scores_device_v4``
+(Pallas ``_kernel_v4``, via ``window_scores_v4`` and
+``window_scores_ext_v4``).  CUDA source: ``csrc/window.cu``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from ..core.rasterize import to_int_trunc
+
+K_LANES = 128          # two-sided main pass: 64 steps m >= 0, 64 steps m < 0
+K_POS = 64             # lane k < 64 holds m = +k; lane k >= 64 holds m = -(k - 63)
+
+
+def lane_steps(count: int, two_sided: bool, device) -> torch.Tensor:
+    """Step offset of each lane, f32."""
+    k = torch.arange(count, dtype=torch.float32, device=device)
+    if two_sided:
+        k = torch.where(k < K_POS, k, -(k - (K_POS - 1)))
+    return k
+
+
+def window_scores_plain(li, ep, sid, wt, tr, v, t0, *, count: int,
+                        two_sided: bool) -> torch.Tensor:
+    """Plain PyTorch version, any device: a Python loop over lines so the
+    sum runs in line order, bit-equal to the kernel."""
+    m_count, n_lines = wt.shape
+    q_w = li.shape[-1]
+    hw = li.shape[-2] * q_w
+    flat = li.reshape(-1)
+    mult = t0[:, None] + lane_steps(count, two_sided, li.device)[None, :]
+    trx = tr[:, 0:1] + mult * v[:, 0:1]                      # (M, K)
+    tr_y = tr[:, 1:2] + mult * v[:, 1:2]
+    acc = torch.zeros((m_count, count), dtype=torch.float32, device=li.device)
+    for j in range(n_lines):
+        w = wt[:, j:j + 1]
+        base = sid[:, j:j + 1].to(torch.int64) * hw
+
+        def probe(ix, iy):
+            xi = to_int_trunc(ep[:, j, ix:ix + 1] + trx)
+            yi = to_int_trunc(ep[:, j, iy:iy + 1] + tr_y)
+            return flat[(base + yi * q_w + xi).clamp(0, flat.numel() - 1)]
+
+        contrib = (probe(0, 1) - probe(2, 3)).abs() * w
+        acc = acc + torch.where(w != 0, contrib, torch.zeros_like(contrib))
+    return acc
+
+
+def window_scores(li, ep, sid, wt, tr, v, t0, *, count: int,
+                  two_sided: bool) -> torch.Tensor:
+    """K1: ``(M, count)`` window scores.
+
+    ``li``: float32 LI stack ``(S, D, H, W)``; ``ep``: ``(M, L, 4)`` line
+    endpoints (no scene translation); ``sid``: int32 ``(M, L)`` global slice
+    ``scene * D + orientation``; ``wt``: ``(M, L)`` line weights; ``tr``:
+    ``(M, 2)`` scene translations; ``v``: ``(M, 2)`` step vectors; ``t0``:
+    ``(M,)`` first step.  CUDA kernel for CUDA tensors, plain version for
+    CPU tensors."""
+    if two_sided and count != K_LANES:
+        raise ValueError(f"the two-sided pattern has {K_LANES} lanes, not {count}")
+    build.require(li, "li", torch.float32, 4)
+    build.require(ep, "ep", torch.float32, 3)
+    build.require(sid, "sid", torch.int32, 2)
+    build.require(wt, "wt", torch.float32, 2)
+    build.require(tr, "tr", torch.float32, 2)
+    build.require(v, "v", torch.float32, 2)
+    build.require(t0, "t0", torch.float32, 1)
+    m_count, n_lines = wt.shape
+    if (ep.shape != (m_count, n_lines, 4) or sid.shape != (m_count, n_lines)
+            or tr.shape != (m_count, 2) or v.shape != (m_count, 2)
+            or t0.shape != (m_count,)):
+        raise ValueError("window_scores: inconsistent candidate shapes")
+    if not build.use_kernel(li, ep, sid, wt, tr, v, t0):
+        return window_scores_plain(li, ep, sid, wt, tr, v, t0, count=count,
+                                   two_sided=two_sided)
+    if ep.data_ptr() % 16 or tr.data_ptr() % 8 or v.data_ptr() % 8:
+        raise ValueError("window_scores: ep must be 16-byte and tr, v 8-byte "
+                         "aligned (the kernel reads float4/float2)")
+    out = torch.empty((m_count, count), dtype=torch.float32, device=li.device)
+    if m_count and count:
+        h, w = li.shape[-2:]
+        build.launch("fdcm_window", li.device, li.data_ptr(), li.numel(),
+                     ep.data_ptr(), sid.data_ptr(), wt.data_ptr(),
+                     tr.data_ptr(), v.data_ptr(), t0.data_ptr(),
+                     out.data_ptr(), m_count, n_lines, count, int(two_sided),
+                     h, w)
+        window_scores.launches += 1
+    return out
+
+
+window_scores.launches = 0

@@ -1,0 +1,111 @@
+"""The port stands alone and never falls back.
+
+* ``import openfdcm_tpu_torch`` (and ``chip_smoke.py``) leave JAX out of
+  ``sys.modules``;
+* a kernel wrapper runs its plain version only for CPU tensors, raises for
+  other devices, and a missing compiler or kernel library raises;
+* ``chip_smoke.py`` without a visible GPU, or without the package beside it,
+  exits non-zero and prints no ``ok`` line.
+"""
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from openfdcm_tpu_torch.ops import build, integral, minplus, prop, window
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code_or_args, cwd=REPO):
+    args = code_or_args if isinstance(code_or_args, list) else ["-c", code_or_args]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_import_does_not_import_jax():
+    res = _run("import sys, openfdcm_tpu_torch, chip_smoke\n"
+               "bad = [m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'openfdcm_tpu')]\n"
+               "assert not bad, bad\n")
+    assert res.returncode == 0, res.stderr
+
+
+def test_chip_smoke_fails_without_gpu():
+    res = _run(["chip_smoke.py"])
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    res = _run(["chip_smoke.py"], cwd=tmp_path)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def _cpu_calls():
+    g = torch.zeros((2, 8))
+    imgs = torch.zeros((2, 4, 6))
+    li = torch.zeros((1, 2, 4, 4))
+    m = 3
+    return [
+        lambda: minplus.minplus_rows(g, g),
+        lambda: prop.propagate_orientation(torch.zeros((2, 4, 4)), [(0, 1, 0.5)]),
+        lambda: integral.sweep_scan(imgs, torch.zeros((2, 6), dtype=torch.int32),
+                                    False, True),
+        lambda: window.window_scores(li, torch.zeros((m, 2, 4)),
+                                     torch.zeros((m, 2), dtype=torch.int32),
+                                     torch.ones((m, 2)), torch.zeros((m, 2)),
+                                     torch.zeros((m, 2)), torch.zeros(m),
+                                     count=5, two_sided=False),
+    ]
+
+
+def test_cpu_tensors_take_the_plain_version(monkeypatch):
+    def no_library():
+        raise AssertionError("a CPU call reached the kernel library")
+    monkeypatch.setattr(build, "library", no_library)
+    for call in _cpu_calls():
+        call()
+    assert (minplus.minplus_rows.launches, prop.propagate_orientation.launches,
+            integral.sweep_scan.launches, window.window_scores.launches) == (0, 0, 0, 0)
+
+
+def test_other_devices_and_bad_inputs_raise():
+    meta = torch.zeros((2, 8), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        minplus.minplus_rows(meta, meta)
+    with pytest.raises(ValueError, match="contiguous"):
+        minplus.minplus_rows(torch.zeros((8, 2)).t(), torch.zeros((2, 8)))
+    with pytest.raises(ValueError, match="float32"):
+        prop.propagate_orientation(torch.zeros((2, 4, 4), dtype=torch.float64),
+                                   [(0, 1, 0.5)])
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "find_nvcc", lambda: None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build()
+
+
+@pytest.mark.gpu
+def test_cuda_call_without_library_raises(monkeypatch, tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    build.library.cache_clear()
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "find_nvcc", lambda: None)
+    try:
+        g = torch.zeros((2, 8), device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc"):
+            minplus.minplus_rows(g, g)
+    finally:
+        build.library.cache_clear()
