@@ -7,25 +7,38 @@ the final ``{"ok": true, ...}`` line, on any failure (including no GPU, or
 a directory without the ``openfdcm_tpu_torch`` package).  Phases:
 
 1. device: the card's name and power limit, torch, CUDA and nvcc versions;
-2. build: compiles the four kernels (``openfdcm_tpu_torch/csrc``) for sm_90a;
+2. build: compiles the six kernels (``openfdcm_tpu_torch/csrc``) for sm_90a,
+   one nvcc per source, all started together;
 3. kernel vs plain: each kernel on the inputs it gets from a real build or
    dispatch of the workload below, against its plain PyTorch version on CPU
-   copies of the same inputs — bit-equal; plus CUDA ``/`` and sqrt against
-   numpy on 1M random f32 pairs;
-4. slice: ``match_many(..., top_k=10, device="cuda")`` on a seeded synthetic
+   copies of the same inputs — bit-equal; the window kernels on the
+   two-sided main pass, the one-sided extension pass and the one-sided
+   pattern on the whole main-pass set from seeded resume steps (K1 from a
+   BatchOptimize dispatch, K5 and K6 from DefaultOptimize dispatches under
+   window generations 2 and 3); plus CUDA ``/`` and sqrt against numpy on
+   1M random f32 pairs;
+4. small reference: the slice on CUDA against the slice on the CPU on a
+   small input, BatchOptimize, and DefaultOptimize under each generation;
+5. slice: ``match_many(..., top_k=10, device="cuda")`` on a seeded synthetic
    workload with the pose workload's sizes — 4 banks of 105 templates
    (23-33 lines, 10-150 px), 10 scenes per bank (one planted template under
    a rigid transform plus 120 clutter lines on a 640² canvas),
    ``Dt3Params(30, 5.0, 1.0, L2)``, ``DefaultSearch(4, 10)``,
-   ``BatchOptimize(10)``, ``ExponentialPenalty(1.5)`` — with every kernel's
-   launch count, finite and repeatable top-10s, stage times, scenes/s and
-   each kernel's time beside its plain version's on the card;
-5. profile: one more slice run under ``torch.profiler`` — device time by
-   kernel and the device's busy share of the run.
+   ``BatchOptimize(10)``, ``ExponentialPenalty(1.5)``, window generation 4
+   — with every kernel's launch count, finite and repeatable top-10s, stage
+   times, scenes/s and each kernel's time beside its plain version's;
+6. generations: the same workload with ``DefaultOptimize()`` under window
+   generations 2, 3 and 4 (two runs each), then ``IndulgentOptimize()`` and
+   ``BatchOptimize(10)`` on bank 0 under each generation — launch counts,
+   host syncs, stage times, planted hits, and per mode the top-10s of the
+   three generations against each other;
+7. profile: one more slice run (phase 5's) under ``torch.profiler`` —
+   device time by kernel and the device's busy share of the run.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -51,6 +64,8 @@ from openfdcm_tpu_torch.ops import integral as ops_integral  # noqa: E402
 from openfdcm_tpu_torch.ops import minplus as ops_minplus  # noqa: E402
 from openfdcm_tpu_torch.ops import prop as ops_prop  # noqa: E402
 from openfdcm_tpu_torch.ops import window as ops_window  # noqa: E402
+from openfdcm_tpu_torch.ops import window_v2 as ops_window_v2  # noqa: E402
+from openfdcm_tpu_torch.ops import window_v3 as ops_window_v3  # noqa: E402
 
 N_BANKS, N_TEMPLATES, N_SCENES, N_CLUTTER, CANVAS = 4, 105, 10, 120, 620
 TOP_K = 10
@@ -70,7 +85,21 @@ KERNELS = {
     "K4_sweep_scan": (ops_integral.sweep_scan, ops_integral.sweep_scan_plain,
                       "openfdcm_tpu_torch/csrc/integral.cu",
                       "openfdcm_tpu/ops/integral_kernel.py:81"),
+    "K5_window_v2": (ops_window_v2.window_v2, ops_window_v2.window_v2_plain,
+                     "openfdcm_tpu_torch/csrc/window_v2.cu",
+                     "openfdcm_tpu/ops/window_kernel.py:210"),
+    "K6_window_v3": (ops_window_v3.window_v3, ops_window_v3.window_v3_plain,
+                     "openfdcm_tpu_torch/csrc/window_v3.cu",
+                     "openfdcm_tpu/ops/window_kernel.py:438"),
 }
+BUILD_KERNELS = ("K2_minplus_rows", "K3_propagate_orientation", "K4_sweep_scan")
+# the window kernel of each generation's main and extension pass
+WINDOW_KERNEL = {2: "K5_window_v2", 3: "K6_window_v3", 4: "K1_window_scores"}
+# generation -> (module, main-pass entry, extension-pass entry, kernel wrapper)
+GEN_ENTRIES = {2: (ops_window_v2, "window_scores_v2", "window_scores_v2_ext",
+                   "window_v2"),
+               3: (ops_window_v3, "window_scores_v3", "window_scores_v3_ext",
+                   "window_v3")}
 
 
 class SmokeFailure(RuntimeError):
@@ -150,6 +179,20 @@ class Recorder:
             setattr(mod, attr, self.saved[name])
 
 
+@contextlib.contextmanager
+def generation(version):
+    """Run under ``OPENFDCM_TPU_KERNEL_VERSION=version``."""
+    saved = os.environ.get("OPENFDCM_TPU_KERNEL_VERSION")
+    os.environ["OPENFDCM_TPU_KERNEL_VERSION"] = str(version)
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["OPENFDCM_TPU_KERNEL_VERSION"]
+        else:
+            os.environ["OPENFDCM_TPU_KERNEL_VERSION"] = saved
+
+
 def mismatches(a, b):
     """Elements that differ, NaN equal to NaN."""
     a, b = a.cpu(), b.cpu()
@@ -216,16 +259,56 @@ def phase_build():
     return dt
 
 
+def record_generation(version, bank, scenes, params, searcher, penalty,
+                      device, lengths):
+    """K5 or K6 calls of a three-scene DefaultOptimize dispatch under
+    ``version``: the first main pass, the first extension pass, and the
+    extension entry on the whole main-pass set from seeded resume steps."""
+    mod, main_name, ext_name, kernel_name = GEN_ENTRIES[version]
+    name = WINDOW_KERNEL[version]
+    with generation(version), Recorder({name: (mod, kernel_name),
+                                        "main": (mod, main_name)}) as rec:
+        of.match_many(scenes[:3], bank, params, searcher, of.DefaultOptimize(),
+                      penalty=penalty, template_lengths=lengths, top_k=TOP_K,
+                      device=device, scene_chunk=3)
+        check(rec.calls["main"], f"no generation-{version} main pass was recorded")
+        (li, scene_tr, cand_lines, cand_mask, rast, valid, slice_idx), _ = \
+            rec.calls["main"][0]
+        n_ext = len([c for c in rec.calls[name] if not c[1]["two_sided"]])
+        s, c, l = cand_mask.shape
+
+        gen = torch.Generator(device="cpu").manual_seed(version)
+        t0r = torch.randint(1, 60, (s * c,), generator=gen).float().to(device)
+        getattr(mod, ext_name)(
+            li, cand_lines.reshape(s * c, l, 4), cand_mask.reshape(s * c, l),
+            (-rast.reshape(s * c, 2)).contiguous(), valid.reshape(s * c),
+            slice_idx.reshape(s * c, l),
+            torch.arange(s, device=device).repeat_interleave(c), scene_tr, t0r)
+    _, tc = getattr(mod, main_name)(*rec.calls["main"][0][0])
+    print(f"[kernel] generation {version}, 3-scene dispatch: "
+          f"{int(((tc == 0) & valid).sum())} of {int(valid.sum())} valid "
+          f"candidates with tc = 0 (quarantined), tc median "
+          f"{float(tc[valid].float().median())}")
+    calls = rec.calls[name]
+    main_pass = [c for c in calls if c[1]["two_sided"]][:1]
+    ext_pass = [c for c in calls[:-1] if not c[1]["two_sided"]][:1]
+    check(main_pass and ext_pass and n_ext,
+          f"{name}: main pass {len(main_pass)}, extension passes {n_ext} recorded")
+    return main_pass + ext_pass + calls[-1:]
+
+
 def phase_kernels(banks, params, searcher, optimizer, penalty, device):
-    """Record every kernel's inputs from a one-scene build and a three-scene
-    search of bank 0, compare each kernel with its plain version on CPU
-    copies, and time both on the card."""
+    """Record every kernel's inputs from a one-scene build and three-scene
+    searches of bank 0 (generation 4 with ``optimizer``, generations 2 and
+    3 with DefaultOptimize), compare each kernel with its plain version on
+    CPU copies, and time both on the card."""
     templates, scenes, _ = banks[0]
     with Recorder({"K2_minplus_rows": (dt_mod, "minplus_rows"),
                    "K3_propagate_orientation": (fm_mod, "propagate_orientation"),
                    "K4_sweep_scan": (integral_mod, "sweep_scan")}) as build_rec:
         of.build_featuremap_batch(scenes[:1], params, device=device)
-    with Recorder({"K1_window_scores": (ops_window, "window_scores")}) as search_rec:
+    with generation(4), Recorder({"K1_window_scores": (ops_window,
+                                                       "window_scores")}) as search_rec:
         bank, lengths = make_bank(templates, device)
         of.match_many(scenes[:3], bank, params, searcher, optimizer,
                       penalty=penalty, template_lengths=lengths, top_k=TOP_K,
@@ -246,6 +329,9 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
                   dict(count=ops_window.K_POS, two_sided=False))]
     cases = dict(build_rec.calls)
     cases["K1_window_scores"] = main_pass + ext_pass + one_sided
+    for version in (2, 3):
+        cases[WINDOW_KERNEL[version]] = record_generation(
+            version, bank, scenes, params, searcher, penalty, device, lengths)
 
     report = {}
     for name, (kernel, plain, _, _) in KERNELS.items():
@@ -258,15 +344,19 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
             torch.cuda.synchronize()
             n_bad += mismatches(got, want)
             err = max(err, max_abs_err(got, want))
-            shapes.append((tuple(args[1].shape), kw["count"]) if kw
-                          else tuple(args[0].shape))
-        k_ms = sum(cuda_ms(lambda a=a, k=k: kernel(*a, **k), 10) for a, k in calls)
-        p_ms = sum(cuda_ms(lambda a=a, k=k: plain(*a, **k), 2) for a, k in calls)
+            shapes.append((tuple(args[1].shape), kw.get("count", kw.get("two_sided")))
+                          if kw else tuple(args[0].shape))
+        k_each = [cuda_ms(lambda a=a, k=k: kernel(*a, **k), 10) for a, k in calls]
+        p_each = [cuda_ms(lambda a=a, k=k: plain(*a, **k), 2) for a, k in calls]
+        k_ms, p_ms = sum(k_each), sum(p_each)
         print(f"[kernel] {name}: {len(calls)} call(s) {shapes}: mismatches "
               f"{n_bad}, max_abs_err {err}, kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms (sum over the calls, on the card)")
+              f"plain {p_ms:.4f} ms (sum over the calls, on the card; per "
+              f"call {[round(t, 4) for t in k_each]} vs "
+              f"{[round(t, 4) for t in p_each]})")
         check(n_bad == 0, f"{name}: {n_bad} elements differ from the plain version")
-        report[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+        report[name] = dict(mismatches=n_bad, max_abs_err=err, ms=k_ms,
+                            plain_ms=p_ms)
     return report
 
 
@@ -314,7 +404,16 @@ def run_slice(banks, params, searcher, optimizer, penalty, device, timer):
 
 def phase_small_reference(banks, params, searcher, optimizer, penalty, device):
     """The slice on CUDA against the same slice on the CPU (all plain
-    versions) on a small input: 8 templates, 2 scenes."""
+    versions) on a small input (8 templates, 2 scenes, a 256² canvas):
+    ``optimizer`` under generation 4, DefaultOptimize under 2, 3 and 4."""
+    for version, opt in ((4, optimizer), (2, of.DefaultOptimize()),
+                         (3, of.DefaultOptimize()), (4, of.DefaultOptimize())):
+        with generation(version):
+            small_reference(banks, params, searcher, opt, penalty, device,
+                            f"generation {version}, {type(opt).__name__}")
+
+
+def small_reference(banks, params, searcher, optimizer, penalty, device, label):
     templates, scenes, _ = banks[0]
     small = templates[:8]
     scene_list = [np.concatenate([templates[0] + 150.0, scenes[0][:20] * 0.4]),
@@ -336,58 +435,201 @@ def phase_small_reference(banks, params, searcher, optimizer, penalty, device):
             check(np.allclose(a.transform, b.transform, rtol=1e-6, atol=1e-5),
                   "small input: transforms differ")
             n_rows += 1
-    print(f"[reference] small input, CUDA vs CPU: {n_rows} top-k rows agree "
-          f"(ids equal, scores rtol 1e-6, transforms atol 1e-5)")
+    print(f"[reference] small input, {label}, CUDA vs CPU: {n_rows} top-k rows "
+          f"agree (ids equal, scores rtol 1e-6, transforms atol 1e-5)")
 
 
-def phase_slice(banks, params, searcher, optimizer, penalty, device):
-    counters = {name: k[0] for name, k in KERNELS.items()}
+def reset_counts():
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
+    for kernel, *_ in KERNELS.values():
+        kernel.launches = 0
     opt_mod.host_sync.count = 0
+
+
+def read_counts():
+    torch.cuda.synchronize()
+    return ({name: k[0].launches for name, k in KERNELS.items()},
+            opt_mod.host_sync.count)
+
+
+def straggler_counts(values):
+    """From the values the walks' host syncs read, in order: candidates
+    entering extension passes (the live count before each), candidates
+    entering lockstep walks (the live count after a non-empty extension
+    pass), and lockstep windows evaluated (the walks' true any-live reads)."""
+    ext_in = walk_in = windows = 0
+    after_ext = False
+    for v in values:
+        if isinstance(v, bool):
+            windows += v
+        elif after_ext:
+            walk_in, after_ext = walk_in + v, False
+        else:
+            ext_in, after_ext = ext_in + v, v > 0
+    return dict(ext_pass=ext_in, walk=walk_in, walk_windows=windows)
+
+
+@contextlib.contextmanager
+def logged_host_syncs():
+    """Record what every host sync of the walks returns (the count on the
+    function stays live: its body increments it through the module name)."""
+    real, values = opt_mod.host_sync, []
+
+    @functools.wraps(real)
+    def logged(t):
+        values.append(real(t))
+        return values[-1]
+    opt_mod.host_sync = logged
+    try:
+        yield values
+    finally:
+        real.count = logged.count
+        opt_mod.host_sync = real
+
+
+def timed_run(banks, params, searcher, optimizer, penalty, device):
+    """One run of the path with the counts set to 0 just before it and read
+    just after: ``(results, launches, host syncs, stage totals, wall s,
+    straggler counts)``."""
     timer = of.StageTimer()
-    t0 = time.perf_counter()
-    first = run_slice(banks, params, searcher, optimizer, penalty, device, timer)
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    syncs = opt_mod.host_sync.count
-    print(f"[slice] launches {launches} host syncs {syncs}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    with logged_host_syncs() as values:
+        reset_counts()
+        t0 = time.perf_counter()
+        results = run_slice(banks, params, searcher, optimizer, penalty,
+                            device, timer)
+        wall = time.perf_counter() - t0
+        launches, syncs = read_counts()
+    return results, launches, syncs, timer.totals, wall, straggler_counts(values)
 
-    timer2 = of.StageTimer()
-    t0 = time.perf_counter()
-    second = run_slice(banks, params, searcher, optimizer, penalty, device, timer2)
-    wall2 = time.perf_counter() - t0
 
-    n_scenes = sum(len(s) for _, s, _ in banks)
+def check_path_launches(launches, version, label):
+    for name in (WINDOW_KERNEL[version],) + BUILD_KERNELS:
+        check(launches[name] > 0, f"{label}: kernel {name} was not launched")
+
+
+def check_topk(banks, first, second=None):
+    """Non-empty, finite top-k per scene (and equal to ``second``);
+    returns the count of scenes whose planted template is in the top-k."""
     hits = 0
-    for (_, _, planted), r1, r2 in zip(banks, first, second):
-        for matches, again, j in zip(r1, r2, planted):
+    for i, ((_, _, planted), r1) in enumerate(zip(banks, first)):
+        for s_i, (matches, j) in enumerate(zip(r1, planted)):
             check(len(matches) > 0, "a scene has an empty top-k")
             for m in matches:
                 check(np.isfinite(m.score) and np.isfinite(m.transform).all()
                       and m.transform.shape == (2, 3), "non-finite match")
-            check(len(matches) == len(again) and all(
-                a.tmpl_idx == b.tmpl_idx and a.score == b.score
-                and np.array_equal(a.transform, b.transform)
-                for a, b in zip(matches, again)), "two runs gave different top-k")
+            if second is not None:
+                again = second[i][s_i]
+                check(len(matches) == len(again) and all(
+                    a.tmpl_idx == b.tmpl_idx and a.score == b.score
+                    and np.array_equal(a.transform, b.transform)
+                    for a, b in zip(matches, again)),
+                    "two runs gave different top-k")
             hits += any(m.tmpl_idx == j for m in matches)
+    return hits
+
+
+def stage_line(stages):
+    return {k: round(v, 4) for k, v in stages.items()}
+
+
+def phase_slice(banks, params, searcher, optimizer, penalty, device):
+    """The PR-1 path (generation 4, ``optimizer``) twice; returns its
+    launch counts and the first run's results."""
+    with generation(4):
+        first, launches, syncs, st1, wall, strag = timed_run(
+            banks, params, searcher, optimizer, penalty, device)
+        second, _, _, st2, wall2, _ = timed_run(
+            banks, params, searcher, optimizer, penalty, device)
+    print(f"[slice] launches {launches} host syncs {syncs} stragglers {strag}")
+    check_path_launches(launches, 4, "slice")
+    n_scenes = sum(len(s) for _, s, _ in banks)
+    hits = check_topk(banks, first, second)
     print(f"[slice] {n_scenes} scenes, top-{TOP_K} non-empty, finite, repeatable; "
           f"planted template in the top-{TOP_K}: {hits}/{n_scenes} "
           f"({hits / n_scenes:.3f})")
-    for name, t, w in (("run 1", timer, wall), ("run 2", timer2, wall2)):
-        stages = {k: round(v, 4) for k, v in t.totals.items()}
+    for name, st, w in (("run 1", st1, wall), ("run 2", st2, wall2)):
         print(f"[slice] {name}: {w:.4f} s, {n_scenes / w:.3f} scenes/s, "
-              f"stages (s) {stages}")
-    return launches
+              f"stages (s) {stage_line(st)}")
+    return launches, first
+
+
+def compare_generations(mode, runs):
+    """Top-k of each generation against generation 4's: scores rtol 1e-6;
+    ids equal except where the entries exchanged at a rank have scores
+    within rel 1e-6 of each other (counted and printed)."""
+    ref = runs[4]
+    for version, res in runs.items():
+        if version == 4:
+            continue
+        n_ex = n_rows = 0
+        for bank_a, bank_b in zip(res, ref):
+            for a_list, b_list in zip(bank_a, bank_b):
+                check(len(a_list) == len(b_list),
+                      f"{mode}: generation {version} vs 4: top-k lengths differ")
+                for a, b in zip(a_list, b_list):
+                    check(np.isclose(a.score, b.score, rtol=1e-6, atol=0),
+                          f"{mode}: generation {version} vs 4: score "
+                          f"{a.score} vs {b.score}")
+                    n_ex += a.tmpl_idx != b.tmpl_idx
+                    n_rows += 1
+        print(f"[generations] {mode}: generation {version} vs 4: {n_rows} top-"
+              f"{TOP_K} rows, scores rtol 1e-6, {n_ex} id exchanges between "
+              f"entries within rel 1e-6")
+
+
+def phase_generations(banks, params, searcher, penalty, device, batch_ref):
+    """DefaultOptimize over the whole workload under generations 2, 3 and
+    4, twice each; IndulgentOptimize and BatchOptimize(10) on bank 0 under
+    each generation (BatchOptimize's generation 4 from ``batch_ref``, the
+    slice phase's run).  Returns the launch counts of each generation's
+    first DefaultOptimize run."""
+    n_scenes = sum(len(s) for _, s, _ in banks)
+    default_runs, launches_by_gen = {}, {}
+    for version in (2, 3, 4):
+        with generation(version):
+            first, launches, syncs, st1, wall, strag = timed_run(
+                banks, params, searcher, of.DefaultOptimize(), penalty, device)
+            second, _, syncs2, st2, wall2, _ = timed_run(
+                banks, params, searcher, of.DefaultOptimize(), penalty, device)
+        check_path_launches(launches, version, f"DefaultOptimize, generation {version}")
+        hits = check_topk(banks, first, second)
+        window = {WINDOW_KERNEL[v]: launches[WINDOW_KERNEL[v]] for v in (2, 3, 4)}
+        print(f"[generations] DefaultOptimize, generation {version}: window "
+              f"launches {window}, host syncs {syncs} / {syncs2}, stragglers "
+              f"{strag}, planted "
+              f"{hits}/{n_scenes}, run 1 {wall:.4f} s, run 2 {wall2:.4f} s "
+              f"({n_scenes / wall2:.3f} scenes/s), stages run 2 (s) "
+              f"{stage_line(st2)}")
+        default_runs[version] = first
+        launches_by_gen[version] = launches
+    compare_generations("DefaultOptimize", default_runs)
+
+    bank0 = banks[:1]
+    for mode, optimizer, versions in (
+            ("IndulgentOptimize", of.IndulgentOptimize(), (2, 3, 4)),
+            ("BatchOptimize(10)", of.BatchOptimize(10), (2, 3))):
+        runs = {4: batch_ref[:1]} if 4 not in versions else {}
+        for version in versions:
+            with generation(version):
+                res, launches, syncs, st, wall, strag = timed_run(
+                    bank0, params, searcher, optimizer, penalty, device)
+            check_path_launches(launches, version, f"{mode}, generation {version}")
+            hits = check_topk(bank0, res)
+            print(f"[generations] {mode}, generation {version}, bank 0: "
+                  f"{WINDOW_KERNEL[version]} launches "
+                  f"{launches[WINDOW_KERNEL[version]]}, K1 {launches['K1_window_scores']}, "
+                  f"host syncs {syncs}, stragglers {strag}, planted "
+                  f"{hits}/{len(bank0[0][1])}, "
+                  f"{wall:.4f} s, stages (s) {stage_line(st)}")
+            runs[version] = res
+        compare_generations(mode, runs)
+    return launches_by_gen
 
 
 def phase_profile(banks, params, searcher, optimizer, penalty, device, top=20):
     """One more slice run under ``torch.profiler``: device time by kernel
     name, the device's busy share of the run's wall time, and the share of
-    device time in the port's four kernels."""
+    device time in the port's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -402,9 +644,10 @@ def phase_profile(banks, params, searcher, optimizer, penalty, device, top=20):
     busy = sum(r[2] for r in rows)
     ours = sum(r[2] for r in rows if any(
         k in r[0] for k in ("minplus_rows_kernel(", "prop_kernel(",
-                            "sweep_kernel(", "window_kernel(")))
+                            "sweep_kernel(", "window_kernel(",
+                            "window_v2_kernel(", "window_v3_kernel(")))
     print(f"[profile] wall {wall * 1e3:.3f} ms (profiled), device busy "
-          f"{busy:.3f} ms ({busy / (wall * 1e3):.3f} of wall), the four "
+          f"{busy:.3f} ms ({busy / (wall * 1e3):.3f} of wall), the port's "
           f"kernels {ours:.3f} ms ({ours / max(busy, 1e-9):.3f} of device time)")
     for name, count, ms in rows[:top]:
         print(f"[profile] {ms:10.3f} ms {count:7d}x  {name[:110]}")
@@ -426,8 +669,14 @@ def main(argv=None) -> int:
     report = phase_kernels(banks, *cfg)
     phase_ieee(device)
     phase_small_reference(banks, *cfg)
-    launches = phase_slice(banks, *cfg)
-    phase_profile(banks, *cfg)
+    launches, batch_ref = phase_slice(banks, *cfg)
+    by_gen = phase_generations(banks, params, searcher, penalty, device,
+                               batch_ref)
+    with generation(4):
+        phase_profile(banks, *cfg)
+    # each kernel's count from the run of the path it serves
+    launches["K5_window_v2"] = by_gen[2]["K5_window_v2"]
+    launches["K6_window_v3"] = by_gen[3]["K6_window_v3"]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (_, _, src, rep) in KERNELS.items()]

@@ -112,9 +112,9 @@ def _make_candidates(tmpl_lines, pair_t, pair_tl, pair_sl, scenes):
 
 def _search_device_batch(tmpl_lines, tmpl_mask, pair_t, pair_tl, pair_sl,
                          scenes, li, angles, scene_tr, feature_size, *,
-                         window, cand_ok=None):
-    """Scene-batched search on kernel K1: candidate generation, the batched
-    optimize and the transform combine.  Returns ``(scores (S, 2P), mats
+                         mode, window, cand_ok=None):
+    """Scene-batched search: candidate generation, the batched optimize
+    (walk ``mode`` on the window kernels) and the transform combine.  Returns ``(scores (S, 2P), mats
     (S, 2P, 2, 3), valid (S, 2P))`` in reference emplace order
     (pair-major, polarity-minor)."""
     s_count, p = pair_sl.shape
@@ -127,7 +127,7 @@ def _search_device_batch(tmpl_lines, tmpl_mask, pair_t, pair_tl, pair_sl,
     cand_align = align_vecs.repeat_interleave(2, dim=1)
     scores, translations, valid = optimize_candidates_batch_kernel(
         li, angles, scene_tr, feature_size, cand_lines, cand_mask, cand_align,
-        mode="batch", window=window, cand_ok=cand_ok)
+        mode=mode, window=window, cand_ok=cand_ok)
     # combine(translation, transform): translation applied after
     # (defaultmatch.cpp:83-84)
     mats = transforms.reshape(s_count, 2 * p, 2, 3).clone()
@@ -138,7 +138,7 @@ def _search_device_batch(tmpl_lines, tmpl_mask, pair_t, pair_tl, pair_sl,
 def _search_device_batch_topk_genpairs(tmpl_lines, tmpl_mask, top_vals, ord_t,
                                        rank_ok, scenes, slen, svalid, li,
                                        angles, scene_tr, feature_size,
-                                       lengths, tau, *, window, k, ms):
+                                       lengths, tau, *, mode, window, k, ms):
     """Top-k search with pair generation on the device.
 
     Pairs come from :func:`~.search.device_pairs` on the ``(T, mt, ms)``
@@ -159,7 +159,7 @@ def _search_device_batch_topk_genpairs(tmpl_lines, tmpl_mask, top_vals, ord_t,
     cand_ok = wok.repeat_interleave(2, dim=1)
     scores, mats, valid = _search_device_batch(
         tmpl_lines, tmpl_mask, pair_t, pair_tl, sl, scenes, li, angles,
-        scene_tr, feature_size, window=window, cand_ok=cand_ok)
+        scene_tr, feature_size, mode=mode, window=window, cand_ok=cand_ok)
     tof = pair_t.repeat_interleave(2)
     pscores = scores if np.isnan(tau) else \
         scores / torch.pow(torch.clamp_min(lengths[tof], 1e-6), tau)

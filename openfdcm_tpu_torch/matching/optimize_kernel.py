@@ -1,21 +1,35 @@
-"""Kernel-backed BatchOptimize walks (port of
+"""Kernel-backed optimizer walks (port of
 :mod:`openfdcm_tpu.matching.optimize_kernel`).
 
-Kernel K1 (:mod:`openfdcm_tpu_torch.ops.window`) scores every candidate on
-a 128-lane window around its aligned position (steps ``m = 0..63`` and
-``m = -1..-64``).  Coverage is uniform: every candidate's decisions use
-``TC = 63`` steps each way (the TPU's per-candidate ``tc`` caps came from
-VMEM patch sizes and are dropped).  The reference's batch decisions then
-run as mask algebra on those windows; walks that leave the covered window
-finish in :func:`_straggler`: one one-sided K1 extension pass of 64 steps
-from each live candidate's resume step, then a lockstep K1 walk.  Results
-do not depend on ``TC`` (``tests/test_torch_window.py``).
+A window kernel scores every candidate on a 128-lane window around its
+aligned position (steps ``m = 0..63`` and ``m = -1..-64``); the
+reference's greedy or batch decisions then run as mask algebra on those
+windows, up to each candidate's covered steps ``tc``.  Walks that leave
+the covered window finish in :func:`_straggler`: one one-sided extension
+pass of 64 steps from each live candidate's resume step (covering
+``cover`` of them), then a lockstep walk on kernel K1.
+
+The window kernel is chosen by ``OPENFDCM_TPU_KERNEL_VERSION``, the JAX
+package's own switch (:func:`kernel_version`):
+
+- 4 (default): kernel K1 (:mod:`openfdcm_tpu_torch.ops.window`), exact
+  probes on every lane, uniform coverage ``TC = 63`` (the TPU generation
+  4's per-candidate caps came from VMEM patch sizes and are dropped);
+- 3: kernel K6 (:mod:`openfdcm_tpu_torch.ops.window_v3`), per-candidate
+  ``tc`` from the row budget and the one-chunk column fit, with deviant
+  candidates quarantined;
+- 2: kernel K5 (:mod:`openfdcm_tpu_torch.ops.window_v2`), per-candidate
+  ``tc`` from the patch's row budget.
+
+Results do not depend on the generation or on ``TC``
+(``tests/test_torch_window.py``, ``tests/test_torch_greedy.py``).
 
 Scene-batched: ``(S, C, ...)`` candidates against an ``(S, D, Q, Q)`` LI
 stack.
 """
 from __future__ import annotations
 
+import os
 from functools import partial
 
 import torch
@@ -23,10 +37,44 @@ import torch
 from ..core import geometry as geo
 from ..core import rasterize as ras
 from ..ops import window as wk
+from ..ops import window_v2 as wk2
+from ..ops import window_v3 as wk3
 from . import featuremap as fm
 from . import optimize as opt
 
-TC = 63     # covered steps per direction in the main and extension passes
+TC = 63     # generation 4: covered steps per direction, main and extension pass
+KERNEL_VERSIONS = (2, 3, 4)
+
+
+def kernel_version() -> int:
+    """The window-kernel generation: ``OPENFDCM_TPU_KERNEL_VERSION``, read
+    at call time, default 4.  A value other than 2, 3 or 4 raises
+    ``ValueError`` (the JAX package takes any other integer as 2)."""
+    raw = os.environ.get("OPENFDCM_TPU_KERNEL_VERSION", "4")
+    try:
+        version = int(raw)
+    except ValueError:
+        version = None
+    if version not in KERNEL_VERSIONS:
+        raise ValueError(f"OPENFDCM_TPU_KERNEL_VERSION={raw!r}: the window "
+                         f"kernel generation is one of {KERNEL_VERSIONS}")
+    return version
+
+
+def _greedy_chain_cov(scores, t_limit, tcov, state, sign):
+    """One greedy-walk pass over window ``scores (M, H)`` (steps
+    ``t0..t0+H-1``) where only steps ``<= tcov`` were evaluated.  A stop
+    caused by coverage alone leaves the candidate live with ``t_next`` at
+    the first unevaluated step (JAX ``optimize_kernel._greedy_chain_cov``)."""
+    done, t0 = state[3], state[4]
+    idx = opt._steps(t0, scores.shape[1])
+    valid = (idx <= tcov[:, None]) & (idx <= t_limit[:, None]) & ~done[:, None]
+    k, stopped, prev, best, bmul = opt._greedy_decide(scores, valid, state, sign)
+    t_next = t0 + k.to(torch.float32)
+    # the walk ends at an ascent (an evaluated step) or past its limit; a
+    # stop at an unevaluated step within the limit leaves it live
+    done = done | (stopped & ((t_next <= tcov) | (t_next > t_limit)))
+    return prev, best, bmul, done, t_next
 
 
 def _batch_chain_cov(scores, t_limit, tcov, state, sign, batch):
@@ -59,18 +107,25 @@ def _compact_sel(done, b):
     return torch.argsort(done.to(torch.int32), stable=True)[:b]
 
 
-def _straggler(state, sign, t_lim, chain_cov, eval_at, ext_eval, window):
+def _straggler(state, sign, t_lim, chain_cov, walk, eval_at, ext_eval,
+               window):
     """Finish walks that left the covered window.  The live count is read
     on the host (the JAX package's ``lax.switch`` ladder becomes a host
     branch): an extension pass on exactly the live candidates, then a
-    lockstep walk on those still live."""
+    lockstep ``walk`` on those still live."""
     live = opt.host_sync((~state[3]).sum())
     if live == 0:
         return state
     sel = _compact_sel(state[3], live)
     sub = tuple(x[sel] for x in state)
     scores, cover = ext_eval(sel, ~sub[3], sign, sub[4])
-    sub = chain_cov(scores, t_lim[sel], sub[4] + cover, sub, sign)
+    # steps t0 .. t0 + cover are covered; a live candidate with cover 0 was
+    # quarantined (generation 3: weight 0 on every line) and has none, not
+    # even t0, whose lane holds 0 (the JAX package takes that lane as step
+    # t0's score: ROADMAP Queue 3)
+    cover = cover.to(torch.float32)
+    tcov = torch.where(cover > 0, sub[4] + cover, sub[4] - 1)
+    sub = chain_cov(scores, t_lim[sel], tcov, sub, sign)
     state = tuple(x.index_put((sel,), v) for x, v in zip(state, sub))
 
     live = opt.host_sync((~state[3]).sum())
@@ -78,23 +133,27 @@ def _straggler(state, sign, t_lim, chain_cov, eval_at, ext_eval, window):
         return state
     sel = _compact_sel(state[3], live)
     sub = tuple(x[sel] for x in state)
-    sub = opt._batch_walk(eval_at(sign, window, sel), t_lim[sel], sub, sign,
-                          window)
+    sub = walk(eval_at(sign, window, sel), t_lim[sel], sub, sign, window)
     return tuple(x.index_put((sel,), v) for x, v in zip(state, sub))
 
 
 def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
                                      cand_lines, cand_mask, cand_align, *,
                                      mode: str, window: int, cand_ok=None):
-    """Scene-batched optimize on kernel K1.
+    """Scene-batched optimize on the window kernel of :func:`kernel_version`
+    (main and extension pass) and kernel K1 (lockstep walks).
 
     ``li``: ``(S, D, Q, Q)`` LI stack; ``angles``: ``(D,)``;
     ``cand_lines``: ``(S, C, L, 4)``; ``cand_mask``: ``(S, C, L)``;
     ``cand_align``: ``(S, C, 2)``; ``scene_tr`` / ``feature_size``:
-    ``(S, 2)``.  ``cand_ok``: optional ``(S, C)`` candidates the caller
-    masks anyway (kept out of the windows and walks).
+    ``(S, 2)``.  ``mode``: ``"default"``, ``"indulgent"`` or ``"batch"``;
+    ``window``: the greedy walks' steps per lockstep window, or the batch
+    size.  ``cand_ok``: optional ``(S, C)`` candidates the caller masks
+    anyway (kept out of the windows and walks).  Generations 2 and 3 raise
+    ``ValueError`` on a canvas they cannot serve.
     Returns ``(scores (S, C), translations (S, C, 2), valid (S, C))``."""
-    opt.require_batch_mode(mode)
+    opt.require_walk_mode(mode)
+    version = kernel_version()
     s, d = li.shape[0], angles.shape[0]
     c, l = cand_mask.shape[1:]
     m = s * c
@@ -112,21 +171,36 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
 
     # --- flatten to one candidate axis ---------------------------------
     scene_of = torch.arange(s, device=dev).repeat_interleave(c)
-    sid = (slice_idx.reshape(m, l) + (scene_of * d)[:, None]).to(torch.int32)
+    si_raw = slice_idx.reshape(m, l)
+    sid = wk2.global_slice(si_raw, scene_of, d)
     ep = cand_lines.reshape(m, l, 4).contiguous()
+    cm_flat = cand_mask.reshape(m, l)
     valid_f = valid.reshape(m)
-    wt = (cand_mask.reshape(m, l) & valid_f[:, None]).to(torch.float32)
+    wt = (cm_flat & valid_f[:, None]).to(torch.float32)
     tr = scene_tr.repeat_interleave(c, dim=0).contiguous()
     rast_f = rast.reshape(m, 2)
     safe_rast = torch.where(valid_f[:, None], rast_f, 0.0).contiguous()
     zero = torch.zeros(m, dtype=torch.float32, device=dev)
     t_pos = torch.where(valid_f, torch.trunc(torch.where(valid_f, pos.reshape(m), 0.0)), 0.0)
     t_neg = torch.where(valid_f, torch.trunc(torch.where(valid_f, -neg.reshape(m), 0.0)), 0.0)
-    tc = torch.full((m,), float(TC), device=dev)
 
-    win = wk.window_scores(li, ep, sid, wt, tr, safe_rast, zero,
-                           count=wk.K_LANES, two_sided=True)
+    if version == 4:
+        win = wk.window_scores(li, ep, sid, wt, tr, safe_rast, zero,
+                               count=wk.K_LANES, two_sided=True)
+        tc = torch.full((m,), float(TC), device=dev)
+    else:
+        entry = wk3.window_scores_v3 if version == 3 else wk2.window_scores_v2
+        win, tc = entry(li, scene_tr, cand_lines, cand_mask, rast, valid,
+                        slice_idx)
+        win, tc = win.reshape(m, wk.K_LANES), tc.reshape(m).to(torch.float32)
     s0 = win[:, 0]
+    if version == 3:
+        # a quarantined candidate (tc = 0, weight 0 on every line) has no
+        # trusted lane, not even m = 0: its aligned score comes from K1 (the
+        # JAX package keeps the lane's 0, a false perfect match: Queue 3)
+        exact0 = wk.window_scores(li, ep, sid, wt, tr, safe_rast, zero,
+                                  count=1, two_sided=False)[:, 0]
+        s0 = torch.where(tc == 0, exact0, s0)
     pos_scores = win[:, 1:wk.K_POS]
     neg_scores = win[:, wk.K_POS:]
 
@@ -141,23 +215,36 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
 
     def ext_eval(sel, active, sign, t0):
         vdir = (sign * rast_f[sel]).contiguous()
-        cover = torch.where(torch.isfinite(vdir).all(dim=-1) & active,
-                            float(TC), 0.0)
-        return wk.window_scores(li, ep[sel], sid[sel], wt[sel], tr[sel], vdir,
-                                t0.contiguous(), count=wk.K_POS,
-                                two_sided=False), cover
+        if version == 4:
+            cover = torch.where(torch.isfinite(vdir).all(dim=-1) & active,
+                                float(TC), 0.0)
+            return wk.window_scores(li, ep[sel], sid[sel], wt[sel], tr[sel],
+                                    vdir, t0.contiguous(), count=wk.K_POS,
+                                    two_sided=False), cover
+        entry = wk3.window_scores_v3_ext if version == 3 \
+            else wk2.window_scores_v2_ext
+        return entry(li, ep[sel], cm_flat[sel], vdir, active, si_raw[sel],
+                     scene_of[sel], scene_tr, t0)
 
-    chain_cov = partial(_batch_chain_cov, batch=window)
+    if mode == "batch":
+        chain_cov = partial(_batch_chain_cov, batch=window)
+        walk = opt._batch_walk
+    else:
+        chain_cov, walk = _greedy_chain_cov, opt._greedy_walk
     ones = torch.ones(m, dtype=torch.float32, device=dev)
 
     state = (s0, s0, zero, t_pos < 1, ones)
     state = chain_cov(pos_scores, t_pos, tc, state, 1.0)
-    state = _straggler(state, 1.0, t_pos, chain_cov, eval_at, ext_eval, window)
+    state = _straggler(state, 1.0, t_pos, chain_cov, walk, eval_at, ext_eval,
+                       window)
     prev, best, mul, _, _ = state
 
-    nstate = (prev, best, mul, t_neg < 1, ones)
+    # indulgent: the negative walk's chain restarts from the aligned score
+    # (indulgentoptimize.cpp:56-58)
+    nstate = (s0 if mode == "indulgent" else prev, best, mul, t_neg < 1, ones)
     nstate = chain_cov(neg_scores, t_neg, tc, nstate, -1.0)
-    nstate = _straggler(nstate, -1.0, t_neg, chain_cov, eval_at, ext_eval, window)
+    nstate = _straggler(nstate, -1.0, t_neg, chain_cov, walk, eval_at,
+                        ext_eval, window)
     _, best, mul, _, _ = nstate
 
     translation = (mul[:, None] * safe_rast).reshape(s, c, 2)

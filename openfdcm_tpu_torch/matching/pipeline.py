@@ -3,7 +3,8 @@
 ``build_featuremap_batch`` builds a whole ``[S, depth, PH, PW]`` DT3 stack
 (kernels K2, K3, K4); ``match_many`` groups scenes by canvas bucket, builds
 each group, and searches it with on-device pair generation, the window
-kernel K1 and a device-side penalize + top-k.
+kernels (K1, or K5/K6 under window generation 2/3) and a device-side
+penalize + top-k.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from . import featuremap as fm
 from . import optimize as opt
 from .match import (Match, TemplateBank, _bucket,
                     _search_device_batch_topk_genpairs, prepare_templates)
+from .optimize_kernel import kernel_version
 from .penalty import DefaultPenalty, ExponentialPenalty
 from .search import DefaultSearch, bank_line_table, scene_length_mask
 
@@ -135,7 +137,8 @@ def match_many_async(scenes, templates, params: fm.Dt3Params, searcher,
         raise NotImplementedError(
             f"search strategy {type(searcher).__name__} is not ported yet "
             "(ROADMAP Queue 1 #5)")
-    opt.require_batch_mode(opt.optimizer_mode(optimizer)[0])
+    opt.require_walk_mode(opt.optimizer_mode(optimizer)[0])
+    kernel_version()                   # an unknown generation raises here
     bank = templates if isinstance(templates, TemplateBank) \
         else prepare_templates(templates, device=device)
     if bank.device != device:
@@ -212,7 +215,7 @@ def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
     top_vals = np.take_along_axis(lens_m, ord_t.astype(np.int64), axis=1) \
         .astype(np.float32)
     rank_ok = np.arange(mt)[None, :] < k_t[:, None]
-    _, window = opt.optimizer_mode(optimizer)
+    mode, window = opt.optimizer_mode(optimizer)
 
     nb = _bucket(max((a.shape[0] for a in arrs), default=1), 128)
     scene_arr = np.zeros((s_total, nb, 4), np.float32)
@@ -237,7 +240,7 @@ def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
             *bank_args, as_dev(scene_arr[sel]), as_dev(slen_arr[sel]),
             as_dev(svalid_arr[sel]), featuremaps.dt3[sel], featuremaps.angles,
             featuremaps.scene_translations[sel], as_dev(fs[sel]), lengths_dev,
-            tau, window=max(window, 1), k=kk, ms=ms)
+            tau, mode=mode, window=max(window, 1), k=kk, ms=ms)
         # one (S, k, 9) tensor [score, tmpl, valid, mat(6)] per chunk: one copy
         packed.append(torch.cat([sk[..., None], tk.to(torch.float32)[..., None],
                                  vk.to(torch.float32)[..., None],

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, loaded with :mod:`ctypes`.  No
 PyTorch header is compiled, which keeps the build short.  The library lands in
 ``build/openfdcm_tpu_torch/`` beside the package, named by a hash of the
@@ -24,8 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "openfdcm_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream last
@@ -36,6 +37,10 @@ SIGNATURES = {
     "fdcm_sweep": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _P],
     "fdcm_window": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                     _I, _I, _P],
+    "fdcm_window_v2": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
+                       _I, _I, _P],
+    "fdcm_window_v3": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
+                       _I, _I, _P],
 }
 
 
@@ -62,8 +67,8 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernel library unless an up-to-date one exists; returns
-    its path.  Raises ``RuntimeError`` naming the nvcc command on failure.
-    The compiler's register and spill report goes to ``<library>.log``."""
+    its path.  Raises ``RuntimeError`` naming the failed nvcc command.  The
+    compiler's register and spill report goes to ``<library>.log``."""
     out = library_path()
     if out.exists():
         return out
@@ -72,20 +77,33 @@ def build() -> Path:
         raise RuntimeError("cannot build the CUDA kernels: nvcc not found on "
                            "PATH or at /usr/local/cuda/bin/nvcc")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in jobs]
+        log, failed = [], []
+        for cmd, proc in zip(jobs, procs):    # wait for every compile
+            try:
+                text = proc.communicate(timeout=900)[0]
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text = proc.communicate()[0] + "\n(timed out after 900 s)"
+            log.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(log[-1])
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so = Path(tmp) / out.name
+        link = [nvcc, *ARCH, "-shared", "-o", str(so), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                               f"{res.stdout}{res.stderr}")
-        out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + res.stdout
-                                           + res.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): "
+                               f"{' '.join(link)}\n{res.stdout}{res.stderr}")
+        out.with_suffix(".log").write_text("\n".join(log))
+        os.replace(so, out)
     return out
 
 

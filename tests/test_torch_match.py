@@ -112,7 +112,7 @@ def test_unported_options_and_short_lengths_raise():
     params = ot.Dt3Params(4, 5.0, 2.0, ot.Distance.L2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ot.match_many(scenes[:1], templates, params, ot.DefaultSearch(3, 4),
-                      ot.DefaultOptimize(), top_k=3)
+                      ot.DenseOptimize(), top_k=3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ot.match_many(scenes[:1], templates, params, ot.DefaultSearch(3, 4),
                       ot.BatchOptimize(5))
