@@ -10,13 +10,16 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
 2. build: compiles the six kernels (``openfdcm_tpu_torch/csrc``) for sm_90a,
    one nvcc per source, all started together;
 3. kernel vs plain: each kernel on the inputs it gets from a real build or
-   dispatch of the workload below, against its plain PyTorch version on CPU
-   copies of the same inputs — bit-equal; the window kernels on the
-   two-sided main pass, the one-sided extension pass and the one-sided
+   dispatch of the workload below, against its plain PyTorch version on the
+   same inputs — bit-equal; the build kernels K2, K3 and K4 on a 10-scene
+   build (the main path's batch; their plain versions are exact integer or
+   add sequences and run on the card), the window kernels on CPU copies of
+   the two-sided main pass, the one-sided extension pass and the one-sided
    pattern on the whole main-pass set from seeded resume steps (K1 from a
    BatchOptimize dispatch, K5 and K6 from DefaultOptimize dispatches under
-   window generations 2 and 3); plus CUDA ``/`` and sqrt against numpy on
-   1M random f32 pairs;
+   window generations 2 and 3); each kernel's time beside its bound (bytes
+   over 3.35 TB/s or operations over 67 TFLOP/s, whichever is larger); plus
+   CUDA ``/`` and sqrt against numpy on 1M random f32 pairs;
 4. small reference: the slice on CUDA against the slice on the CPU on a
    small input, BatchOptimize, and DefaultOptimize under each generation;
 5. slice: ``match_many(..., top_k=10, device="cuda")`` on a seeded synthetic
@@ -82,9 +85,9 @@ KERNELS = {
                                  ops_prop.propagate_orientation_plain,
                                  "openfdcm_tpu_torch/csrc/prop.cu",
                                  "openfdcm_tpu/ops/prop_kernel.py:47"),
-    "K4_sweep_scan": (ops_integral.sweep_scan, ops_integral.sweep_scan_plain,
-                      "openfdcm_tpu_torch/csrc/integral.cu",
-                      "openfdcm_tpu/ops/integral_kernel.py:81"),
+    "K4_sweep_stack": (ops_integral.sweep_stack, ops_integral.sweep_stack_plain,
+                       "openfdcm_tpu_torch/csrc/integral.cu",
+                       "openfdcm_tpu/ops/integral_kernel.py:81"),
     "K5_window_v2": (ops_window_v2.window_v2, ops_window_v2.window_v2_plain,
                      "openfdcm_tpu_torch/csrc/window_v2.cu",
                      "openfdcm_tpu/ops/window_kernel.py:210"),
@@ -92,7 +95,10 @@ KERNELS = {
                      "openfdcm_tpu_torch/csrc/window_v3.cu",
                      "openfdcm_tpu/ops/window_kernel.py:438"),
 }
-BUILD_KERNELS = ("K2_minplus_rows", "K3_propagate_orientation", "K4_sweep_scan")
+BUILD_KERNELS = ("K2_minplus_rows", "K3_propagate_orientation", "K4_sweep_stack")
+# the card's published peaks (H100 SXM data sheet, 700 W): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # the window kernel of each generation's main and extension pass
 WINDOW_KERNEL = {2: "K5_window_v2", 3: "K6_window_v3", 4: "K1_window_scores"}
 # generation -> (module, main-pass entry, extension-pass entry, kernel wrapper)
@@ -153,7 +159,8 @@ def make_workload(seed, n_banks=N_BANKS, n_templates=N_TEMPLATES,
 # ---------------------------------------------------------------------------
 
 class Recorder:
-    """Wraps module attributes so each call's arguments are recorded."""
+    """Wraps module attributes so each call's arguments are recorded (tensors
+    as copies taken before the call: K4 overwrites its input)."""
 
     def __init__(self, targets):
         self.targets = targets          # {name: (module, attribute)}
@@ -169,7 +176,7 @@ class Recorder:
             # body increments through its module-global name
             @functools.wraps(fn)
             def wrapped(*args, _fn=fn, _name=name, **kw):
-                self.calls[_name].append((args, kw))
+                self.calls[_name].append((fresh(args), kw))
                 return _fn(*args, **kw)
             setattr(mod, attr, wrapped)
         return self
@@ -208,6 +215,66 @@ def max_abs_err(a, b):
 
 def to_cpu(args):
     return tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+
+
+def fresh(args):
+    return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
+
+def nbytes(*xs):
+    return sum(x.numel() * x.element_size() if torch.is_tensor(x) else x.nbytes
+               for x in xs if torch.is_tensor(x) or isinstance(x, np.ndarray))
+
+
+# position of the line weights among each window kernel's arguments
+WINDOW_WEIGHTS = {"K1_window_scores": 3, "K5_window_v2": 4, "K6_window_v3": 3}
+
+
+def probed_cells(plain, args, kw):
+    """Cells of a window kernel's stack ``args[0]`` that its output depends
+    on: the nonzero entries of the stack's gradient through the plain
+    version, taken on random stack values with a random output gradient so
+    that no two probes cancel (where a call probes does not depend on the
+    stack's values; a weight-0 line contributes no gradient)."""
+    li = args[0]
+    gen = torch.Generator(device=li.device).manual_seed(0)
+    x = torch.rand(li.shape, generator=gen, device=li.device).requires_grad_()
+    out = plain(x, *args[1:], **kw)
+    out.backward(torch.rand(out.shape, generator=gen, device=out.device) + 0.5)
+    return int((x.grad != 0).sum())
+
+
+def work(name, args, kw):
+    """``(bytes, operations)`` one call needs: each input read once and each
+    output written once — of a window kernel's stack, only the cells its
+    output depends on; operations as the kernel counts them on these
+    inputs — a window probe pair about 12 (two coordinates and a flat index
+    each, difference, abs, weighted add) per lane and line of nonzero
+    weight, K2 about 24 integer and float ops per pixel (envelope push, pops,
+    pointer walk, the value, the root), K3 an add and a min per step and
+    pixel, K4 one add per cell."""
+    if name in WINDOW_WEIGHTS:
+        wt = args[WINDOW_WEIGHTS[name]]
+        lanes = kw.get("count", 128 if kw["two_sided"] else 64)
+        cells = probed_cells(KERNELS[name][1], args, kw)
+        return (cells * args[0].element_size() + nbytes(*args[1:])
+                + wt.shape[0] * lanes * 4, 12 * lanes * int((wt != 0).sum()))
+    x = args[0]
+    if name == "K2_minplus_rows":
+        return 2 * nbytes(x), 24 * x.numel()
+    if name == "K3_propagate_orientation":
+        return 2 * nbytes(x), 2 * len(args[1]) * x.numel() // x.shape[-3]
+    return 2 * nbytes(x) + nbytes(*args[1:]), x.numel()
+
+
+def bound(name, calls):
+    """The least time the card could take for ``calls``, ms, what binds it
+    (bytes over the HBM rate or operations over the f32 peak), and the
+    bytes and operations of each call."""
+    each = [work(name, args, kw) for args, kw in calls]
+    b, o = sum(w[0] for w in each), sum(w[1] for w in each)
+    t_bytes, t_ops = b / HBM_BYTES_PER_S * 1e3, o / F32_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (each,)
 
 
 def cuda_ms(fn, reps):
@@ -297,16 +364,36 @@ def record_generation(version, bank, scenes, params, searcher, penalty,
     return main_pass + ext_pass + calls[-1:]
 
 
+def build_memory(scenes, params, device):
+    """Device memory of one unrecorded build of ``scenes``: the peak above
+    what was allocated before it, its output, and K2's scratch."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fmb = of.build_featuremap_batch(scenes, params, device=device)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    n, w = fmb.dt3.numel() // fmb.dt3.shape[-1], fmb.dt3.shape[-1]
+    scratch = ops_minplus.scratch_blocks(n, fmb.dt3.device) * 32 * w * 4
+    print(f"[memory] {len(scenes)}-scene build: peak {peak / 1e6:.1f} MB above "
+          f"the {base / 1e6:.1f} MB allocated before it, its output "
+          f"{held / 1e6:.1f} MB ({tuple(fmb.dt3.shape)} stack "
+          f"{nbytes(fmb.dt3) / 1e6:.1f} MB), K2 scratch {scratch / 1e6:.1f} MB")
+
+
 def phase_kernels(banks, params, searcher, optimizer, penalty, device):
-    """Record every kernel's inputs from a one-scene build and three-scene
-    searches of bank 0 (generation 4 with ``optimizer``, generations 2 and
-    3 with DefaultOptimize), compare each kernel with its plain version on
-    CPU copies, and time both on the card."""
+    """Record every kernel's inputs from bank 0's 10-scene build (the main
+    path's batch) and three-scene searches of bank 0 (generation 4 with
+    ``optimizer``, generations 2 and 3 with DefaultOptimize), compare each
+    kernel with its plain version (build kernels on the card, window
+    kernels on CPU copies), and time both on the card."""
     templates, scenes, _ = banks[0]
     with Recorder({"K2_minplus_rows": (dt_mod, "minplus_rows"),
                    "K3_propagate_orientation": (fm_mod, "propagate_orientation"),
-                   "K4_sweep_scan": (integral_mod, "sweep_scan")}) as build_rec:
-        of.build_featuremap_batch(scenes[:1], params, device=device)
+                   "K4_sweep_stack": (integral_mod, "sweep_stack")}) as build_rec:
+        of.build_featuremap_batch(scenes, params, device=device)
+    build_memory(scenes, params, device)
     with generation(4), Recorder({"K1_window_scores": (ops_window,
                                                        "window_scores")}) as search_rec:
         bank, lengths = make_bank(templates, device)
@@ -339,25 +426,32 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
         check(calls, f"no {name} call was recorded")
         n_bad, err, shapes = 0, 0.0, []
         for args, kw in calls:
-            got = kernel(*args, **kw)
-            want = plain(*to_cpu(args), **kw)
+            got = kernel(*fresh(args), **kw)
+            want = plain(*(fresh(args) if name in BUILD_KERNELS else to_cpu(args)),
+                         **kw)
             torch.cuda.synchronize()
             n_bad += mismatches(got, want)
             err = max(err, max_abs_err(got, want))
             shapes.append((tuple(args[1].shape), kw.get("count", kw.get("two_sided")))
-                          if kw else tuple(args[0].shape))
-        k_each = [cuda_ms(lambda a=a, k=k: kernel(*a, **k), 10) for a, k in calls]
-        p_each = [cuda_ms(lambda a=a, k=k: plain(*a, **k), 2) for a, k in calls]
+                          if name in WINDOW_WEIGHTS else tuple(args[0].shape))
+            del got, want
+        # K4 works in place: each timing loop runs on its own copy
+        k_each = [cuda_ms(lambda a=fresh(a), k=k: kernel(*a, **k), 10) for a, k in calls]
+        p_each = [cuda_ms(lambda a=fresh(a), k=k: plain(*a, **k), 2) for a, k in calls]
         k_ms, p_ms = sum(k_each), sum(p_each)
+        b_ms, b_by, b_each = bound(name, calls)
         print(f"[kernel] {name}: {len(calls)} call(s) {shapes}: mismatches "
-              f"{n_bad}, max_abs_err {err}, kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms (sum over the calls, on the card; per "
-              f"call {[round(t, 4) for t in k_each]} vs "
-              f"{[round(t, 4) for t in p_each]})")
+              f"{n_bad}, max_abs_err {err}, kernel {k_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {100 * b_ms / k_ms:.1f} % of it "
+              f"reached), plain {p_ms:.4f} ms (sums over the calls, on the "
+              f"card; per call {[round(t, 4) for t in k_each]} vs "
+              f"{[round(t, 4) for t in p_each]}; bytes, operations per call "
+              f"{b_each})")
         check(n_bad == 0, f"{name}: {n_bad} elements differ from the plain version")
         report[name] = dict(mismatches=n_bad, max_abs_err=err, ms=k_ms,
-                            plain_ms=p_ms)
-    return report
+                            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=None)
+    return report, cases
 
 
 def make_bank(templates, device):
@@ -643,8 +737,8 @@ def phase_profile(banks, params, searcher, optimizer, penalty, device, top=20):
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
     ours = sum(r[2] for r in rows if any(
-        k in r[0] for k in ("minplus_rows_kernel(", "prop_kernel(",
-                            "sweep_kernel(", "window_kernel(",
+        k in r[0] for k in ("edt_rows_kernel(", "prop_kernel(",
+                            "sweep_paths_kernel(", "window_kernel(",
                             "window_v2_kernel(", "window_v3_kernel(")))
     print(f"[profile] wall {wall * 1e3:.3f} ms (profiled), device busy "
           f"{busy:.3f} ms ({busy / (wall * 1e3):.3f} of wall), the port's "
@@ -666,7 +760,7 @@ def main(argv=None) -> int:
     optimizer = of.BatchOptimize(10)
     penalty = of.ExponentialPenalty(1.5)
     cfg = (params, searcher, optimizer, penalty, device)
-    report = phase_kernels(banks, *cfg)
+    report, cases = phase_kernels(banks, *cfg)
     phase_ieee(device)
     phase_small_reference(banks, *cfg)
     launches, batch_ref = phase_slice(banks, *cfg)
@@ -680,6 +774,12 @@ def main(argv=None) -> int:
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (_, _, src, rep) in KERNELS.items()]
+    for k in kernels:
+        print(f"[kernels] {k['name']}: {k['ms']:.4f} ms over its recorded "
+              f"calls, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
+              f"{100 * k['bound_ms'] / k['ms']:.1f} % of bound, "
+              f"{k['launches']} launches per main-path run; no single "
+              f"PyTorch call computes its function")
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -10,16 +10,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.types import Distance
+from .core.types import Distance, resolve_device
 from .matching.featuremap import Dt3Params
 from .matching.match import TemplateBank
 from .matching.pipeline import Dt3FeaturemapBatch
 
 
 def bank_from_numpy(lines, mask, host, lengths_np, counts_np,
-                    device="cpu") -> TemplateBank:
+                    device="cuda") -> TemplateBank:
     """A ``TemplateBank`` from a JAX bank's ``lines (T, lmax, 4)``, ``mask
     (T, lmax)``, ``host`` templates, ``lengths_np`` and ``counts_np``."""
+    device = resolve_device(device)
     return TemplateBank(
         torch.as_tensor(np.array(lines, np.float32), device=device),
         torch.as_tensor(np.array(mask, bool), device=device),
@@ -28,10 +29,11 @@ def bank_from_numpy(lines, mask, host, lengths_np, counts_np,
 
 
 def featuremap_batch_from_numpy(dt3, angles, scene_translations, feature_sizes,
-                                params, device="cpu") -> Dt3FeaturemapBatch:
+                                params, device="cuda") -> Dt3FeaturemapBatch:
     """A ``Dt3FeaturemapBatch`` from a JAX batch's ``dt3 (S, D, PH, PW)``,
     ``angles``, ``scene_translations``, ``feature_sizes`` and ``params``
     (any object with ``depth``, ``dt3_coeff``, ``padding`` and ``distance``)."""
+    device = resolve_device(device)
     p = Dt3Params(int(params.depth), float(params.dt3_coeff),
                   float(params.padding), Distance(int(params.distance)))
     return Dt3FeaturemapBatch(

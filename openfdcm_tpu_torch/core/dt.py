@@ -5,8 +5,9 @@ Separable and exact, as in the JAX package:
 1. column pass — ``g[y, x] = min_y' |y - y'|`` over seed rows of column x,
    with the cumulative-min identity (``torch.cummin``);
 2. row pass — L1 by the same identity; L2² as the min-plus convolution
-   ``min_s (g[r, s]² + (x - s)²)``, on kernel K2
-   (:mod:`openfdcm_tpu_torch.ops.minplus`); L2 as its square root.
+   ``min_s (g[r, s]² + (x - s)²)`` and L2 as its square root, both on
+   kernel K2 (:mod:`openfdcm_tpu_torch.ops.minplus`), which takes ``g``
+   directly and applies the clamp and square root itself.
 
 Every intermediate is an integer below 2^24 or ``F32_MAX``/``inf``, so all
 results are exact.  An empty seed set gives ``F32_MAX`` everywhere
@@ -17,7 +18,6 @@ from __future__ import annotations
 import torch
 
 from ..ops.minplus import minplus_rows
-from .geometry import sqrt_f32
 from .types import Distance, F32_MAX
 
 
@@ -37,14 +37,7 @@ def row_pass(g: torch.Tensor, *, metric: Distance) -> torch.Tensor:
     """Horizontal combine of the column-pass distances ``g (..., H, W)``."""
     if metric == Distance.L1:
         return torch.clamp_max(_nearest_1d_l1(g), F32_MAX)
-    w = g.shape[-1]
-    g2 = g * g                       # F32_MAX² overflows to inf on purpose
-    l1 = _nearest_1d_l1(g)           # exact radius bound for K2
-    out = minplus_rows(g2.reshape(-1, w), l1.reshape(-1, w)).reshape(g.shape)
-    out = torch.clamp_max(out, F32_MAX)
-    if metric == Distance.L2:
-        out = torch.where(out >= F32_MAX, out, sqrt_f32(out))
-    return out
+    return minplus_rows(g, sqrt=metric == Distance.L2)
 
 
 def dt_from_indicator(ind: torch.Tensor, *, metric: Distance) -> torch.Tensor:

@@ -4,16 +4,17 @@ Each DT3 slice is prefix-summed along its own angle: sweeping the major
 axis, each position adds the previous carry shifted by
 ``delta_i = round(i*r) - round((i-1)*r)`` rows (reference
 ``core/imgproc.h:38-84``).  The sweep runs on kernel K4
-(:mod:`openfdcm_tpu_torch.ops.integral`).  Physical canvases may be padded
-beyond each scene's logical region; padded cells are zero and the sweep
-geometry keeps the logical region reference-exact.
+(:mod:`openfdcm_tpu_torch.ops.integral`), one launch for the whole stack,
+in place.  Physical canvases may be padded beyond each scene's logical
+region; padded cells are zero and the sweep geometry keeps the logical
+region reference-exact.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops.integral import sweep_scan
+from ..ops.integral import sweep_stack
 
 
 def sweep_spec(angle: float):
@@ -45,53 +46,41 @@ def _deltas(r: np.float32, n: int) -> np.ndarray:
     return d
 
 
-def _group_geometry(angles, phys_n_by_major):
-    """Static per-group geometry: for each major-axis group, the member slice
-    indices, flip flags, and delta tables."""
-    specs = [sweep_spec(float(a)) for a in angles]
-    groups = []
-    for want_x_major in (True, False):
-        idxs = [i for i, sp in enumerate(specs) if sp[0] == want_x_major]
-        if not idxs:
-            continue
-        n_phys = phys_n_by_major[want_x_major]
-        flips = np.array([specs[i][1] for i in idxs])
-        dels = np.stack([_deltas(specs[i][2], n_phys) for i in idxs])
-        groups.append((want_x_major, tuple(idxs), flips, dels))
-    return groups
+def sweep_tables(angles, logical_hw, phys_h: int, phys_w: int):
+    """Host tables of K4 for a scene batch: ``(deltas (R, max(PH, PW)),
+    table (S*D, 3))``, per flat slice ``s*D + j`` its ``(x_major, flip,
+    delta row)``.  An unflipped slice's deltas are shared by every scene; a
+    flipped sweep is a reversed sweep over the physical axis whose position
+    ``c`` takes the delta of sweep position ``n_log - 1 - c`` (0 in the
+    padding), so it takes a row per scene, as in the JAX package."""
+    logical_hw = np.asarray(logical_hw, np.int64).reshape(-1, 2)
+    s, d = logical_hw.shape[0], len(angles)
+    width = max(phys_h, phys_w)
+    table = np.zeros((s, d, 3), np.int32)
+    rows = []
+    for j, angle in enumerate(angles):
+        x_major, flip, r = sweep_spec(float(angle))
+        n_phys = phys_w if x_major else phys_h
+        dl = _deltas(r, n_phys)
+        if flip:
+            n_log = logical_hw[:, 1] if x_major else logical_hw[:, 0]     # (S,)
+            col = np.arange(n_phys)
+            pidx = np.clip(n_log[:, None] - 1 - col[None, :], 0, n_phys - 1)
+            per_scene = np.where(col[None, :] < n_log[:, None], dl[pidx], 0)
+        else:
+            per_scene = dl[None]
+        table[:, j, 0], table[:, j, 1] = x_major, flip
+        table[:, j, 2] = len(rows) + (np.arange(s) if flip else 0)
+        rows += [np.pad(row, (0, width - n_phys)) for row in per_scene]
+    deltas = np.stack(rows).astype(np.int32) if rows else np.zeros((0, width), np.int32)
+    return deltas, table.reshape(s * d, 3)
 
 
 def line_integral_stack(imgs: torch.Tensor, angles, logical_hw) -> torch.Tensor:
     """Line integrals of a scene batch ``(S, D, PH, PW)``, one static angle
-    per slice.  ``logical_hw``: host ``(S, 2)`` ints ``(H, W)``; each scene's
-    padding beyond it must be zero.
-
-    A flipped sweep is a reversed sweep over the physical axis whose column
-    ``c`` takes the delta of sweep position ``n_log - 1 - c`` (0 in the
-    padding), as in the JAX package."""
-    s, d, ph, pw = imgs.shape
-    logical_hw = np.asarray(logical_hw, np.int64).reshape(s, 2)
-    out = torch.empty_like(imgs)
-    for x_major, idxs, flips, dels in _group_geometry(angles, {True: pw, False: ph}):
-        n_log = logical_hw[:, 1] if x_major else logical_hw[:, 0]     # (S,)
-        for flip in (False, True):
-            sub = [k for k, f in enumerate(flips) if bool(f) == flip]
-            if not sub:
-                continue
-            sub_idxs = [idxs[k] for k in sub]
-            dsub = dels[np.asarray(sub)]                               # (G, n)
-            n_phys = dsub.shape[1]
-            if flip:
-                col = np.arange(n_phys)
-                pidx = np.clip(n_log[:, None] - 1 - col[None, :], 0, n_phys - 1)
-                dcol = np.where(col[None, None, :] < n_log[:, None, None],
-                                dsub[:, pidx].transpose(1, 0, 2), 0)   # (S, G, n)
-            else:
-                dcol = np.broadcast_to(dsub[None], (s,) + dsub.shape)
-            sel = torch.as_tensor(sub_idxs, device=imgs.device)
-            group = imgs[:, sel].reshape(-1, ph, pw)
-            dev_d = torch.as_tensor(np.array(dcol, np.int32, order="C").reshape(-1, n_phys),
-                                    device=imgs.device)
-            res = sweep_scan(group, dev_d, flip, x_major)
-            out[:, sel] = res.reshape(s, len(sub_idxs), ph, pw)
-    return out
+    per slice, computed in place (one K4 launch); returns ``imgs``.
+    ``logical_hw``: host ``(S, 2)`` ints ``(H, W)``; each scene's padding
+    beyond it must be zero."""
+    _, _, ph, pw = imgs.shape
+    deltas, table = sweep_tables(angles, logical_hw, ph, pw)
+    return sweep_stack(imgs, deltas, table)

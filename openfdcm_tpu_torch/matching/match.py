@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..core import geometry as geo
+from ..core.types import resolve_device
 from .optimize_kernel import optimize_candidates_batch_kernel
 from .search import device_pairs
 
@@ -69,12 +70,13 @@ class TemplateBank:
 
 
 def prepare_templates(templates, lmax_to: int | None = None,
-                      count_to: int | None = None, device="cpu") -> TemplateBank:
+                      count_to: int | None = None, device="cuda") -> TemplateBank:
     """Pad templates to a common line count and put them on ``device``.
 
     ``lmax_to``/``count_to``: pad the line axis / template count up to
     these values (ignored when smaller); padded templates have no lines and
     never produce matches."""
+    device = resolve_device(device)
     tmpls = [geo.as_lines_np(t) if np.asarray(t).size else np.zeros((0, 4), np.float32)
              for t in templates]
     if count_to is not None and count_to > len(tmpls):

@@ -43,22 +43,21 @@ from . import featuremap as fm
 from . import optimize as opt
 
 TC = 63     # generation 4: covered steps per direction, main and extension pass
-KERNEL_VERSIONS = (2, 3, 4)
 
 
 def kernel_version() -> int:
     """The window-kernel generation: ``OPENFDCM_TPU_KERNEL_VERSION``, read
-    at call time, default 4.  A value other than 2, 3 or 4 raises
-    ``ValueError`` (the JAX package takes any other integer as 2)."""
+    at call time, default 4.  As in the JAX package, 3 and 4 select their
+    generation and any other integer generation 2; a value that is not an
+    integer raises ``ValueError``."""
     raw = os.environ.get("OPENFDCM_TPU_KERNEL_VERSION", "4")
     try:
         version = int(raw)
     except ValueError:
-        version = None
-    if version not in KERNEL_VERSIONS:
-        raise ValueError(f"OPENFDCM_TPU_KERNEL_VERSION={raw!r}: the window "
-                         f"kernel generation is one of {KERNEL_VERSIONS}")
-    return version
+        raise ValueError(f"OPENFDCM_TPU_KERNEL_VERSION={raw!r} is not an "
+                         "integer (3 or 4 select their window generation, "
+                         "any other integer generation 2)") from None
+    return version if version in (3, 4) else 2
 
 
 def _greedy_chain_cov(scores, t_limit, tcov, state, sign):

@@ -16,6 +16,7 @@ import torch
 from ..core import geometry as geo
 from ..core import integral
 from ..core.dt import dt_from_indicator
+from ..core.types import resolve_device
 from ..profiling import maybe_stage
 from . import featuremap as fm
 from . import optimize as opt
@@ -40,12 +41,13 @@ class Dt3FeaturemapBatch:
 
 
 def build_featuremap_batch(scenes, params: fm.Dt3Params = fm.Dt3Params(),
-                           pad_to: int = 128, device="cpu") -> Dt3FeaturemapBatch:
+                           pad_to: int = 128, device="cuda") -> Dt3FeaturemapBatch:
     """Build the DT3 feature maps of a list of scenes on ``device``.
 
     All scenes share a physical canvas (the max logical size rounded up to
     ``pad_to``); each scene's logical region is reference-exact and its
     padding is zero.  Reference ``dt3cpu.h:174-234``."""
+    device = resolve_device(device)
     arrs = [geo.as_lines_np(s) for s in scenes]
     metas = [fm.scene_centered_translation(a, params.padding) for a in arrs]
     phys = max(max(w, h) for _, (w, h) in metas)
@@ -105,7 +107,7 @@ def _scene_chunk(c_per_scene: int, lmax: int, device: torch.device) -> int:
 def match_many(scenes, templates, params: fm.Dt3Params, searcher, optimizer,
                penalty=None, template_lengths=None, pad_to: int = 128,
                scene_chunk: int | None = None, top_k: int | None = None,
-               device="cpu", timer=None) -> list:
+               device="cuda", timer=None) -> list:
     """End-to-end matching of a list of scenes on ``device``.
 
     Scenes are grouped by canvas bucket; each group is built and searched,
@@ -121,14 +123,12 @@ def match_many(scenes, templates, params: fm.Dt3Params, searcher, optimizer,
 def match_many_async(scenes, templates, params: fm.Dt3Params, searcher,
                      optimizer, penalty=None, template_lengths=None,
                      pad_to: int = 128, scene_chunk: int | None = None,
-                     top_k: int | None = None, device="cpu", timer=None):
+                     top_k: int | None = None, device="cuda", timer=None):
     """:func:`match_many` split into dispatch + collection: runs every build
     and search, and returns a zero-argument ``collect()`` that fetches the
     top-k rows (one device-to-host copy per scene chunk) and returns
     ``list[list[Match]]``."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = resolve_device(device)
     if top_k is None:
         raise NotImplementedError(
             "match_many without top_k (the host ranking path) is not ported "
@@ -138,7 +138,7 @@ def match_many_async(scenes, templates, params: fm.Dt3Params, searcher,
             f"search strategy {type(searcher).__name__} is not ported yet "
             "(ROADMAP Queue 1 #5)")
     opt.require_walk_mode(opt.optimizer_mode(optimizer)[0])
-    kernel_version()                   # an unknown generation raises here
+    kernel_version()                   # a non-integer generation raises here
     bank = templates if isinstance(templates, TemplateBank) \
         else prepare_templates(templates, device=device)
     if bank.device != device:

@@ -1,4 +1,4 @@
-"""Kernel K4: the directional line integral's sweep scan.
+"""Kernel K4: the directional line integrals of a DT3 stack.
 
 Per slice, a carry sweeps along the major axis: each step shifts the carry
 one row by a delta in {-1, 0, +1} with zero fill, then adds the column
@@ -8,10 +8,12 @@ one add of the same two operands as in the JAX package's ``_sweep_scan``
 (``core/integral.py:104-115``), so results are bit-exact.
 
 Replaces ``openfdcm_tpu/ops/integral_kernel.py::sweep_scan_tpu`` (Pallas
-``_kernel``).  CUDA source: ``csrc/integral.cu``.
+``_kernel``).  CUDA source: ``csrc/integral.cu`` (one thread per sweep
+path, one launch per stack).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import build
@@ -19,7 +21,9 @@ from . import build
 
 def sweep_scan_plain(imgs: torch.Tensor, deltas: torch.Tensor, flip: bool,
                      x_major: bool) -> torch.Tensor:
-    """Plain PyTorch version, any device: a loop over sweep positions."""
+    """The sweep of a slice group ``imgs (G, H, W)`` with per-position
+    ``deltas (G, N)`` (``N = W`` when ``x_major``, else ``H``), any device:
+    a loop over sweep positions."""
     out = torch.empty_like(imgs)
     src = imgs if x_major else imgs.transpose(1, 2)   # (G, rows, N) views
     dst = out if x_major else out.transpose(1, 2)
@@ -36,28 +40,53 @@ def sweep_scan_plain(imgs: torch.Tensor, deltas: torch.Tensor, flip: bool,
     return out
 
 
-def sweep_scan(imgs: torch.Tensor, deltas: torch.Tensor, flip: bool,
-               x_major: bool) -> torch.Tensor:
-    """K4 on float32 ``imgs (G, H, W)`` with int32 per-position ``deltas
-    (G, N)``: the sweep runs along W (``N = W``) when ``x_major``, else
-    along H (``N = H``).  CUDA kernel for CUDA tensors, plain version for
-    CPU tensors."""
-    build.require(imgs, "imgs", torch.float32, 3)
-    build.require(deltas, "deltas", torch.int32, 2)
-    g, h, w = imgs.shape
-    rows, n = (h, w) if x_major else (w, h)
-    if deltas.shape != (g, n):
-        raise ValueError(f"deltas {tuple(deltas.shape)}, need {(g, n)}")
-    if not build.use_kernel(imgs, deltas):
-        return sweep_scan_plain(imgs, deltas, flip, x_major)
-    out = torch.empty_like(imgs)
+def sweep_stack_plain(imgs: torch.Tensor, deltas: np.ndarray,
+                      table: np.ndarray) -> torch.Tensor:
+    """Plain PyTorch version, any device: the slices grouped by ``(x_major,
+    flip)``, each group gathered, swept by :func:`sweep_scan_plain` and
+    written back into ``imgs``."""
+    s, d, ph, pw = imgs.shape
+    flat = imgs.view(s * d, ph, pw)
+    for x_major in (True, False):
+        n = pw if x_major else ph
+        for flip in (False, True):
+            sel = np.flatnonzero((table[:, 0] == x_major) & (table[:, 1] == flip))
+            if not sel.size:
+                continue
+            idx = torch.as_tensor(sel, device=imgs.device)
+            dsel = torch.as_tensor(np.ascontiguousarray(deltas[table[sel, 2], :n]),
+                                   device=imgs.device)
+            flat[idx] = sweep_scan_plain(flat[idx], dsel, flip, x_major)
+    return imgs
+
+
+def sweep_stack(imgs: torch.Tensor, deltas, table) -> torch.Tensor:
+    """K4 on a float32 stack ``imgs (S, D, PH, PW)``, in place; returns
+    ``imgs``.  Host arrays: ``deltas (R, N >= max(PH, PW))`` int32 delta
+    rows by physical position; ``table (S*D, 3)`` per flat slice ``s*D + j``
+    its ``(x_major, flip, delta row)``.  The sweep runs along PW (its first
+    PW deltas) when ``x_major``, else along PH.  CUDA kernel for CUDA
+    tensors, plain version for CPU tensors."""
+    build.require(imgs, "imgs", torch.float32, 4)
+    deltas = np.ascontiguousarray(deltas, np.int32)
+    table = np.ascontiguousarray(table, np.int32)
+    s, d, ph, pw = imgs.shape
+    if deltas.ndim != 2 or deltas.shape[1] < max(ph, pw):
+        raise ValueError(f"deltas {deltas.shape}: need (R, >= {max(ph, pw)})")
+    if (table.shape != (s * d, 3) or not np.isin(table[:, :2], (0, 1)).all()
+            or (table[:, 2] < 0).any() or (table[:, 2] >= deltas.shape[0]).any()):
+        raise ValueError(f"table {table.shape}: need ({s * d}, 3) rows of "
+                         f"(x_major 0/1, flip 0/1, delta row < {deltas.shape[0]})")
+    if not build.use_kernel(imgs):
+        return sweep_stack_plain(imgs, deltas, table)
     if imgs.numel():
-        row_stride, col_stride = (w, 1) if x_major else (1, w)
-        build.launch("fdcm_sweep", imgs.device, imgs.data_ptr(),
-                     out.data_ptr(), deltas.data_ptr(), g, rows, n, h * w,
-                     row_stride, col_stride, int(flip))
-        sweep_scan.launches += 1
-    return out
+        dev_d = torch.as_tensor(deltas, device=imgs.device)
+        dev_t = torch.as_tensor(table, device=imgs.device)
+        build.launch("fdcm_sweep_paths", imgs.device, imgs.data_ptr(),
+                     dev_d.data_ptr(), dev_t.data_ptr(), s * d, ph, pw,
+                     deltas.shape[1])
+        sweep_stack.launches += 1
+    return imgs
 
 
-sweep_scan.launches = 0
+sweep_stack.launches = 0

@@ -17,6 +17,7 @@ from openfdcm_tpu_torch.core import integral as tintegral
 from openfdcm_tpu_torch.core.types import Distance
 from openfdcm_tpu_torch.matching import featuremap as tfm
 from openfdcm_tpu_torch.matching import pipeline as tpipe
+from openfdcm_tpu_torch.ops.integral import sweep_stack_plain
 from tests.utils import create_lines, make_rotation
 
 torch.set_num_threads(1)
@@ -60,19 +61,98 @@ def test_line_integral_stack_bit_equal_padded_canvas():
     rng = np.random.default_rng(2)
     depth, ph, pw = 8, 48, 64
     angles = np.concatenate([tfm.make_angles(6), [2.8, -2.9]]).astype(np.float32)
-    groups = tintegral._group_geometry(angles, {True: pw, False: ph})
-    assert {(x, bool(f)) for x, _, flips, _ in groups for f in flips} == \
-        {(True, False), (True, True), (False, False), (False, True)}
     lhw = np.array([[40, 50], [48, 37]], np.int64)
+    _, table = tintegral.sweep_tables(angles, lhw, ph, pw)
+    assert {(x, f) for x, f, _ in table.tolist()} == \
+        {(1, 0), (1, 1), (0, 0), (0, 1)}
     imgs = rng.uniform(0, 9, (2, depth, ph, pw)).astype(np.float32)
     for i, (h, w) in enumerate(lhw):
         imgs[i, :, h:, :] = 0.0
         imgs[i, :, :, w:] = 0.0
-    got = tintegral.line_integral_stack(torch.as_tensor(imgs), angles, lhw).numpy()
+    # the integral is taken in place: hand the port a copy
+    got = tintegral.line_integral_stack(torch.tensor(imgs), angles, lhw).numpy()
     for i in range(2):
         want = np.asarray(jintegral.line_integral_stack(
             jnp.asarray(imgs[i]), list(angles), logical_hw=lhw[i]))
         np.testing.assert_array_equal(got[i], want)
+
+
+def k4_mirror(imgs: np.ndarray, deltas: np.ndarray, table: np.ndarray):
+    """``csrc/integral.cu`` (sweep_paths_kernel) on a host copy: per slice,
+    one carry per path ``u = y - D_k`` (``D_k`` the cumulative shift up to
+    sweep position ``k``, inclusive; a delta outside {-1, +1} shifts by 0),
+    over ``u in [-max D, rows - 1 - min D]``; a path adds its cell to its
+    carry, or to 0 where it just entered the canvas."""
+    s, d, ph, pw = imgs.shape
+    out = imgs.copy().reshape(s * d, ph, pw)
+    for sl, (x_major, flip, row) in enumerate(table.tolist()):
+        view = out[sl] if x_major else out[sl].T         # (rows, n) view
+        rows, n = view.shape
+        order = np.arange(n)[::-1] if flip else np.arange(n)
+        dl = deltas[row, order]                           # by sweep position
+        dk = np.cumsum((dl == 1).astype(np.int64) - (dl == -1))
+        visits = np.zeros((rows, n), np.int64)
+        for u in range(-dk.max(), rows - dk.min()):
+            carry, prev_in = np.float32(0), False
+            for k in range(n):
+                y, c = u + dk[k], order[k]
+                inside = 0 <= y < rows
+                if inside:
+                    carry = np.float32(view[y, c] + (carry if prev_in else np.float32(0)))
+                    view[y, c] = carry
+                    visits[y, c] += 1
+                prev_in = inside
+        assert (visits == 1).all()                # one path through each cell
+        for k0 in range(0, n, 32):                # x-major tile: <= 64 rows
+            span = dk[k0:k0 + 32]
+            assert 32 + span.max() - span.min() <= 64
+    return out.reshape(s, d, ph, pw)
+
+
+def test_k4_mirror_matches_plain_and_jax_padded_canvas():
+    """The mirror against the port's line integral and the JAX package on
+    the padded canvas above: all four (x_major, flip) pairs, per-scene
+    delta rows of the flipped sweeps."""
+    rng = np.random.default_rng(2)
+    depth, ph, pw = 8, 48, 64
+    angles = np.concatenate([tfm.make_angles(6), [2.8, -2.9]]).astype(np.float32)
+    lhw = np.array([[40, 50], [48, 37]], np.int64)
+    deltas, table = tintegral.sweep_tables(angles, lhw, ph, pw)
+    assert (deltas[table[table[:, 1] == 1, 2]] != deltas[table[0, 2]]).any()
+    imgs = rng.uniform(0, 9, (2, depth, ph, pw)).astype(np.float32)
+    for i, (h, w) in enumerate(lhw):
+        imgs[i, :, h:, :] = 0.0
+        imgs[i, :, :, w:] = 0.0
+    got = k4_mirror(imgs, deltas, table)
+    np.testing.assert_array_equal(
+        got, tintegral.line_integral_stack(torch.tensor(imgs), angles, lhw).numpy())
+    for i in range(2):
+        want = np.asarray(jintegral.line_integral_stack(
+            jnp.asarray(imgs[i]), list(angles), logical_hw=lhw[i]))
+        np.testing.assert_array_equal(got[i], want)
+
+
+@pytest.mark.parametrize("x_major", [True, False])
+@pytest.mark.parametrize("flip", [False, True])
+def test_k4_mirror_random_deltas(x_major, flip):
+    """Deltas in {-2..2} at random (paths that leave and re-enter the
+    canvas; +-2 acts as 0): the mirror against the plain version and the
+    JAX package's ``_sweep_scan``, slice by slice."""
+    rng = np.random.default_rng(int(x_major) * 2 + int(flip))
+    s, d, ph, pw = 2, 3, 24, 40
+    n = pw if x_major else ph
+    imgs = rng.uniform(-5, 9, (s, d, ph, pw)).astype(np.float32)
+    deltas = rng.integers(-2, 3, (s * d, max(ph, pw))).astype(np.int32)
+    table = np.array([(x_major, flip, i) for i in range(s * d)], np.int32)
+    got = k4_mirror(imgs, deltas, table)
+    plain = sweep_stack_plain(torch.tensor(imgs), deltas, table).numpy()
+    np.testing.assert_array_equal(got, plain)
+    for i, img in enumerate(imgs.reshape(-1, ph, pw)):
+        cols = img if x_major else img.T
+        want = np.asarray(jintegral._sweep_scan(jnp.asarray(cols),
+                                                jnp.asarray(deltas[i, :n]), flip))
+        np.testing.assert_array_equal(got.reshape(-1, ph, pw)[i],
+                                      want if x_major else want.T)
 
 
 def _scenes():
@@ -94,7 +174,7 @@ def test_build_featuremap_batch_bit_equal(metric):
     jparams = of.Dt3Params(4, 5.0, 1.5, of.Distance(int(metric)))
     want = of.build_featuremap_batch(scenes, jparams, pad_to=64)
     got = tpipe.build_featuremap_batch(scenes, tfm.Dt3Params(4, 5.0, 1.5, metric),
-                                       pad_to=64)
+                                       pad_to=64, device="cpu")
     dt3 = np.asarray(want.dt3)
     assert dt3.shape == tuple(got.dt3.shape)
     # logical regions are smaller than the physical canvas

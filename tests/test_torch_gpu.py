@@ -33,15 +33,29 @@ def _same(got, want):
     assert torch.equal(got[ok], want[ok])
 
 
-def test_minplus_kernel_bit_equal():
-    rng = np.random.default_rng(0)
-    g = np.where(rng.uniform(size=(96, 300)) < 0.03,
-                 rng.integers(0, 40, (96, 300)), F32_MAX).astype(np.float32)
-    g[5] = F32_MAX
-    gt = torch.as_tensor(g)
-    g2, l1 = gt * gt, _nearest_1d_l1(gt)
-    _same(minplus.minplus_rows(g2.cuda(), l1.cuda()),
-          minplus.minplus_rows_plain(g2, l1))
+def _column_pass(seed, shape, density):
+    """Column-pass distances of a sparse random seed image, on the card."""
+    rng = np.random.default_rng(seed)
+    ind = np.where(rng.uniform(size=shape) < density, 0.0, F32_MAX).astype(np.float32)
+    return _nearest_1d_l1(torch.as_tensor(ind, device="cuda"), dim=-2)
+
+
+@pytest.mark.parametrize("sqrt", [False, True])
+def test_minplus_kernel_bit_equal(sqrt):
+    """K2 on sparse 640 px slices (a seedless one among them) and on 8191 px
+    rows (pixels beyond 2^24 and the tie of
+    ``test_k2_mirror_beyond_the_exact_range``), against the plain version
+    (exact, so run on the card too)."""
+    g = _column_pass(0, (2, 6, 640, 640), 2e-4)
+    g[1, 2] = F32_MAX
+    wide = _column_pass(1, (1, 8, 8191), 4e-4)
+    wide[0, 0] = F32_MAX
+    wide[0, 0, 0], wide[0, 0, 8190] = 181, 1
+    before = minplus.minplus_rows.launches
+    for x in (g, wide):
+        _same(minplus.minplus_rows(x, sqrt=sqrt),
+              minplus.minplus_rows_plain(x, sqrt=sqrt))
+    assert minplus.minplus_rows.launches == before + 2
 
 
 def test_prop_kernel_bit_equal():
@@ -55,12 +69,38 @@ def test_prop_kernel_bit_equal():
 @pytest.mark.parametrize("x_major", [True, False])
 @pytest.mark.parametrize("flip", [False, True])
 def test_sweep_kernel_bit_equal(x_major, flip):
+    """K4 in place on 640 px slices with random deltas (paths that leave
+    and re-enter the canvas), against the plain version on the card."""
     rng = np.random.default_rng(2)
-    imgs = torch.as_tensor(rng.uniform(0, 10, (5, 48, 72)).astype(np.float32))
-    n = 72 if x_major else 48
-    d = torch.as_tensor(rng.integers(-1, 2, (5, n)).astype(np.int32))
-    _same(integral.sweep_scan(imgs.cuda(), d.cuda(), flip, x_major),
-          integral.sweep_scan_plain(imgs, d, flip, x_major))
+    imgs = torch.as_tensor(rng.uniform(0, 10, (2, 3, 640, 640)).astype(np.float32),
+                           device="cuda")
+    deltas = rng.integers(-1, 2, (6, 640)).astype(np.int32)
+    table = np.array([(x_major, flip, i) for i in range(6)], np.int32)
+    want = integral.sweep_stack_plain(imgs.clone(), deltas, table)
+    got = imgs.clone()
+    before = integral.sweep_stack.launches
+    assert integral.sweep_stack(got, deltas, table) is got
+    assert integral.sweep_stack.launches == before + 1
+    _same(got, want)
+
+
+def test_line_integral_stack_cuda_matches_cpu():
+    """The DT3 angle bank plus two x-major flipped angles on a padded
+    640 px canvas (per-scene delta rows), one K4 launch, against the CPU."""
+    from openfdcm_tpu_torch.core import integral as core_integral
+    rng = np.random.default_rng(6)
+    angles = np.concatenate([tfm.make_angles(30), [2.8, -2.9]]).astype(np.float32)
+    lhw = np.array([[620, 600], [640, 517], [577, 640]], np.int64)
+    imgs = rng.uniform(0, 9, (3, 32, 640, 640)).astype(np.float32)
+    for i, (h, w) in enumerate(lhw):
+        imgs[i, :, h:, :] = 0.0
+        imgs[i, :, :, w:] = 0.0
+    want = core_integral.line_integral_stack(torch.tensor(imgs), angles, lhw)
+    before = integral.sweep_stack.launches
+    got = core_integral.line_integral_stack(torch.tensor(imgs, device="cuda"),
+                                            angles, lhw)
+    assert integral.sweep_stack.launches == before + 1
+    _same(got, want)
 
 
 @pytest.mark.parametrize("count,two_sided", [(128, True), (64, False), (10, False)])

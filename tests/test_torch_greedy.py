@@ -230,12 +230,12 @@ def test_match_many_greedy_matches_jax(jax_greedy_runs, entry_calls,
     got = ot.match_many(scenes, templates, ot.Dt3Params(4, 5.0, 2.2, ot.Distance.L2),
                         ot.DefaultSearch(4, 10), getattr(ot, optimizer)(),
                         penalty=ot.ExponentialPenalty(1.5),
-                        template_lengths=lengths, top_k=TOP_K)
+                        template_lengths=lengths, top_k=TOP_K, device="cpu")
     _assert_same_topk(got, runs[optimizer])
     assert set(entry_calls) == ({version} - {4})
 
 
-@pytest.mark.parametrize("value", ["5", "1", "v3", ""])
+@pytest.mark.parametrize("value", ["v3", ""])
 def test_unknown_kernel_version_raises(monkeypatch, value):
     monkeypatch.setenv("OPENFDCM_TPU_KERNEL_VERSION", value)
     with pytest.raises(ValueError, match="OPENFDCM_TPU_KERNEL_VERSION"):
@@ -243,7 +243,23 @@ def test_unknown_kernel_version_raises(monkeypatch, value):
     scenes, templates = _problem()
     with pytest.raises(ValueError, match="OPENFDCM_TPU_KERNEL_VERSION"):
         ot.match_many(scenes[:1], templates, ot.Dt3Params(4, 5.0, 2.2, ot.Distance.L2),
-                      ot.DefaultSearch(3, 4), ot.DefaultOptimize(), top_k=3)
+                      ot.DefaultSearch(3, 4), ot.DefaultOptimize(), top_k=3,
+                      device="cpu")
+
+
+@pytest.mark.parametrize("value", ["5", "1"])
+def test_other_integer_kernel_version_is_generation_2(monkeypatch, entry_calls,
+                                                     value):
+    """As in the JAX package, an integer other than 3 or 4 selects
+    generation 2."""
+    monkeypatch.setenv("OPENFDCM_TPU_KERNEL_VERSION", value)
+    assert tok.kernel_version() == 2
+    scenes, templates = _problem()
+    got = ot.match_many(scenes[:1], templates, ot.Dt3Params(4, 5.0, 2.2, ot.Distance.L2),
+                        ot.DefaultSearch(3, 4), ot.DefaultOptimize(), top_k=3,
+                        device="cpu")
+    assert len(got) == 1 and got[0]
+    assert set(entry_calls) == {2}
 
 
 def test_kernel_version_default(monkeypatch):

@@ -12,6 +12,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -52,14 +53,14 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 def _cpu_calls():
     g = torch.zeros((2, 8))
-    imgs = torch.zeros((2, 4, 6))
+    imgs = torch.zeros((1, 2, 4, 6))
     li = torch.zeros((1, 2, 4, 4))
     m = 3
     return [
-        lambda: minplus.minplus_rows(g, g),
+        lambda: minplus.minplus_rows(g, sqrt=True),
         lambda: prop.propagate_orientation(torch.zeros((2, 4, 4)), [(0, 1, 0.5)]),
-        lambda: integral.sweep_scan(imgs, torch.zeros((2, 6), dtype=torch.int32),
-                                    False, True),
+        lambda: integral.sweep_stack(imgs, np.zeros((1, 6), np.int32),
+                                     np.array([[1, 0, 0], [0, 1, 0]])),
         lambda: window.window_scores(li, torch.zeros((m, 2, 4)),
                                      torch.zeros((m, 2), dtype=torch.int32),
                                      torch.ones((m, 2)), torch.zeros((m, 2)),
@@ -75,15 +76,20 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     for call in _cpu_calls():
         call()
     assert (minplus.minplus_rows.launches, prop.propagate_orientation.launches,
-            integral.sweep_scan.launches, window.window_scores.launches) == (0, 0, 0, 0)
+            integral.sweep_stack.launches, window.window_scores.launches) == (0, 0, 0, 0)
 
 
 def test_other_devices_and_bad_inputs_raise():
     meta = torch.zeros((2, 8), device="meta")
     with pytest.raises(ValueError, match="device"):
-        minplus.minplus_rows(meta, meta)
+        minplus.minplus_rows(meta, sqrt=False)
     with pytest.raises(ValueError, match="contiguous"):
-        minplus.minplus_rows(torch.zeros((8, 2)).t(), torch.zeros((2, 8)))
+        minplus.minplus_rows(torch.zeros((8, 2)).t(), sqrt=False)
+    with pytest.raises(ValueError, match="16384"):
+        minplus.minplus_rows(torch.zeros((1, 16385)), sqrt=False)
+    with pytest.raises(ValueError, match="table"):
+        integral.sweep_stack(torch.zeros((1, 2, 4, 6)), np.zeros((1, 6), np.int32),
+                             np.array([[1, 0, 0], [0, 1, 1]]))
     with pytest.raises(ValueError, match="float32"):
         prop.propagate_orientation(torch.zeros((2, 4, 4), dtype=torch.float64),
                                    [(0, 1, 0.5)])
@@ -106,6 +112,6 @@ def test_cuda_call_without_library_raises(monkeypatch, tmp_path):
     try:
         g = torch.zeros((2, 8), device="cuda")
         with pytest.raises(RuntimeError, match="nvcc"):
-            minplus.minplus_rows(g, g)
+            minplus.minplus_rows(g, sqrt=False)
     finally:
         build.library.cache_clear()

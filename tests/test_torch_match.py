@@ -71,7 +71,8 @@ def test_match_many_matches_jax(jax_run):
                         ot.Dt3Params(4, 5.0, 2.2, ot.Distance.L2),
                         ot.DefaultSearch(4, 10), ot.BatchOptimize(10),
                         penalty=ot.ExponentialPenalty(1.5),
-                        template_lengths=jax_run["lengths"], top_k=TOP_K)
+                        template_lengths=jax_run["lengths"], top_k=TOP_K,
+                        device="cpu")
     _assert_same_topk(got, jax_run["matches"])
 
 
@@ -79,9 +80,11 @@ def test_search_on_jax_dt3_matches_jax(jax_run):
     fms, bank = jax_run["fms"], jax_run["bank"]
     t_fms = convert.featuremap_batch_from_numpy(
         np.asarray(fms.dt3), np.asarray(fms.angles),
-        np.asarray(fms.scene_translations), fms.feature_sizes, fms.params)
+        np.asarray(fms.scene_translations), fms.feature_sizes, fms.params,
+        device="cpu")
     t_bank = convert.bank_from_numpy(np.asarray(bank.lines), np.asarray(bank.mask),
-                                     bank.host, bank.lengths_np, bank.counts_np)
+                                     bank.host, bank.lengths_np, bank.counts_np,
+                                     device="cpu")
     post = (torch.as_tensor(np.asarray(jax_run["lengths"], np.float32)), 1.5, TOP_K)
     rows = tpipe._genpairs_batch_dispatch(
         ot.DefaultSearch(4, 10), ot.BatchOptimize(10), t_fms, t_bank,
@@ -95,7 +98,7 @@ def test_match_many_async_equals_sync():
     scenes, templates = _problem()
     args = (scenes[:2], templates[:2], ot.Dt3Params(4, 5.0, 2.0, ot.Distance.L2),
             ot.DefaultSearch(3, 4), ot.BatchOptimize(5))
-    kw = dict(penalty=ot.DefaultPenalty(), top_k=4)
+    kw = dict(penalty=ot.DefaultPenalty(), top_k=4, device="cpu")
     sync = ot.match_many(*args, **kw)
     timer = ot.StageTimer()
     got = ot.match_many_async(*args, timer=timer, **kw)()
@@ -112,11 +115,40 @@ def test_unported_options_and_short_lengths_raise():
     params = ot.Dt3Params(4, 5.0, 2.0, ot.Distance.L2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ot.match_many(scenes[:1], templates, params, ot.DefaultSearch(3, 4),
-                      ot.DenseOptimize(), top_k=3)
+                      ot.DenseOptimize(), top_k=3, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ot.match_many(scenes[:1], templates, params, ot.DefaultSearch(3, 4),
-                      ot.BatchOptimize(5))
+                      ot.BatchOptimize(5), device="cpu")
     with pytest.raises(IndexError, match="templatelengths"):
         ot.match_many(scenes[:1], templates, params, ot.DefaultSearch(3, 4),
                       ot.BatchOptimize(5), penalty=ot.DefaultPenalty(),
-                      template_lengths=[1.0], top_k=3)
+                      template_lengths=[1.0], top_k=3, device="cpu")
+
+
+def test_entry_points_default_to_cuda():
+    """Every entry point runs on the card unless the CPU is asked for: with
+    no CUDA device it raises instead of running on the CPU."""
+    scenes, templates = _problem()
+    params = ot.Dt3Params(4, 5.0, 2.0, ot.Distance.L2)
+    if torch.cuda.is_available():
+        assert ot.prepare_templates(templates).device.type == "cuda"
+        assert ot.build_featuremap_batch(scenes[:1], params).dt3.device.type == "cuda"
+        return
+    bank = ot.prepare_templates(templates, device="cpu")
+    calls = [
+        lambda: ot.prepare_templates(templates),
+        lambda: ot.build_featuremap_batch(scenes[:1], params),
+        lambda: ot.match_many(scenes[:1], templates, params, ot.DefaultSearch(3, 4),
+                              ot.BatchOptimize(5), top_k=3),
+        lambda: ot.match_many_async(scenes[:1], templates, params,
+                                    ot.DefaultSearch(3, 4), ot.BatchOptimize(5),
+                                    top_k=3),
+        lambda: convert.bank_from_numpy(bank.lines.numpy(), bank.mask.numpy(),
+                                        bank.host, bank.lengths_np, bank.counts_np),
+        lambda: convert.featuremap_batch_from_numpy(
+            np.zeros((1, 4, 8, 8), np.float32), np.zeros(4, np.float32),
+            np.zeros((1, 2), np.float32), [(8, 8)], params),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
