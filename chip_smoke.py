@@ -7,8 +7,8 @@ the final ``{"ok": true, ...}`` line, on any failure (including no GPU, or
 a directory without the ``openfdcm_tpu_torch`` package).  Phases:
 
 1. device: the card's name and power limit, torch, CUDA and nvcc versions;
-2. build: compiles the six kernels (``openfdcm_tpu_torch/csrc``) for sm_90a,
-   one nvcc per source, all started together;
+2. build: compiles the kernels (``openfdcm_tpu_torch/csrc``: K1-K6 and K1's
+   tile copy) for sm_90a, one nvcc per source, all started together;
 3. kernel vs plain: each kernel on the inputs it gets from a real build or
    dispatch of the workload below, against its plain PyTorch version on the
    same inputs — bit-equal; the build kernels K2, K3 and K4 on a 10-scene
@@ -16,10 +16,14 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
    add sequences and run on the card), the window kernels on CPU copies of
    the two-sided main pass, the one-sided extension pass and the one-sided
    pattern on the whole main-pass set from seeded resume steps (K1 from a
-   BatchOptimize dispatch, K5 and K6 from DefaultOptimize dispatches under
-   window generations 2 and 3); each kernel's time beside its bound (bytes
-   over 3.35 TB/s or operations over 67 TFLOP/s, whichever is larger); plus
-   CUDA ``/`` and sqrt against numpy on 1M random f32 pairs;
+   BatchOptimize dispatch, reading the dispatch's tiled stack copy, whose
+   kernel runs against its plain version on the card; K5 and K6 from
+   DefaultOptimize dispatches under window generations 2 and 3); each
+   kernel's time beside its bound (bytes over 3.35 TB/s or operations over
+   67 TFLOP/s, whichever is larger); K1's main pass split into its x-major
+   (|v.x| = 1) and y-major candidates, each on the tiled copy and on the
+   row-major stack; plus CUDA ``/`` and sqrt against numpy on 1M random f32
+   pairs;
 4. small reference: the slice on CUDA against the slice on the CPU on a
    small input, BatchOptimize, and DefaultOptimize under each generation;
 5. slice: ``match_many(..., top_k=10, device="cuda")`` on a seeded synthetic
@@ -36,7 +40,10 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
    host syncs, stage times, planted hits, and per mode the top-10s of the
    three generations against each other;
 7. profile: one more slice run (phase 5's) under ``torch.profiler`` —
-   device time by kernel and the device's busy share of the run.
+   device time by kernel, the device's busy share of the run, and K3's
+   time per launch beside its CUDA-event time from phase 3; then one
+   DefaultOptimize run each under generations 2 and 3, for K5's and K6's
+   device time per run.
 """
 from __future__ import annotations
 
@@ -78,6 +85,9 @@ KERNELS = {
     "K1_window_scores": (ops_window.window_scores, ops_window.window_scores_plain,
                          "openfdcm_tpu_torch/csrc/window.cu",
                          "openfdcm_tpu/ops/window_kernel.py:1080"),
+    "K1_tile_stack": (ops_window.tile_stack, ops_window.tile_stack_plain,
+                      "openfdcm_tpu_torch/csrc/window.cu",
+                      "openfdcm_tpu/ops/window_kernel.py:1080"),
     "K2_minplus_rows": (ops_minplus.minplus_rows, ops_minplus.minplus_rows_plain,
                         "openfdcm_tpu_torch/csrc/minplus.cu",
                         "openfdcm_tpu/ops/minplus_kernel.py:121"),
@@ -96,11 +106,20 @@ KERNELS = {
                      "openfdcm_tpu/ops/window_kernel.py:438"),
 }
 BUILD_KERNELS = ("K2_minplus_rows", "K3_propagate_orientation", "K4_sweep_stack")
+# kernels whose plain version is exact and runs on the card
+PLAIN_ON_CARD = BUILD_KERNELS + ("K1_tile_stack",)
 # the card's published peaks (H100 SXM data sheet, 700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # the window kernel of each generation's main and extension pass
 WINDOW_KERNEL = {2: "K5_window_v2", 3: "K6_window_v3", 4: "K1_window_scores"}
+# the kernels each generation's search must launch
+SEARCH_KERNELS = {2: ("K5_window_v2",), 3: ("K6_window_v3",),
+                  4: ("K1_window_scores", "K1_tile_stack")}
+# the kernels' names in a profile
+PROFILE_NAMES = ("edt_rows_kernel", "prop_fixed", "prop_any",
+                 "sweep_paths_kernel", "window_kernel", "tile_kernel",
+                 "window_v2_kernel", "window_v3_kernel")
 # generation -> (module, main-pass entry, extension-pass entry, kernel wrapper)
 GEN_ENTRIES = {2: (ops_window_v2, "window_scores_v2", "window_scores_v2_ext",
                    "window_v2"),
@@ -217,6 +236,12 @@ def to_cpu(args):
     return tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
 
 
+def plain_kw(kw):
+    """A kernel call's keywords for its plain version (which reads the
+    row-major stack, not K1's tiled copy)."""
+    return {k: v for k, v in kw.items() if k != "tiles"}
+
+
 def fresh(args):
     return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
 
@@ -239,7 +264,7 @@ def probed_cells(plain, args, kw):
     li = args[0]
     gen = torch.Generator(device=li.device).manual_seed(0)
     x = torch.rand(li.shape, generator=gen, device=li.device).requires_grad_()
-    out = plain(x, *args[1:], **kw)
+    out = plain(x, *args[1:], **plain_kw(kw))
     out.backward(torch.rand(out.shape, generator=gen, device=out.device) + 0.5)
     return int((x.grad != 0).sum())
 
@@ -252,7 +277,7 @@ def work(name, args, kw):
     each, difference, abs, weighted add) per lane and line of nonzero
     weight, K2 about 24 integer and float ops per pixel (envelope push, pops,
     pointer walk, the value, the root), K3 an add and a min per step and
-    pixel, K4 one add per cell."""
+    pixel, K4 one add per cell, K1's tile copy none."""
     if name in WINDOW_WEIGHTS:
         wt = args[WINDOW_WEIGHTS[name]]
         lanes = kw.get("count", 128 if kw["two_sided"] else 64)
@@ -260,6 +285,8 @@ def work(name, args, kw):
         return (cells * args[0].element_size() + nbytes(*args[1:])
                 + wt.shape[0] * lanes * 4, 12 * lanes * int((wt != 0).sum()))
     x = args[0]
+    if name == "K1_tile_stack":
+        return nbytes(x) + 4 * int(np.prod(ops_window.tile_shape(x.shape))), 0
     if name == "K2_minplus_rows":
         return 2 * nbytes(x), 24 * x.numel()
     if name == "K3_propagate_orientation":
@@ -365,12 +392,27 @@ def record_generation(version, bank, scenes, params, searcher, penalty,
 
 
 def build_memory(scenes, params, device):
-    """Device memory of one unrecorded build of ``scenes``: the peak above
-    what was allocated before it, its output, and K2's scratch."""
+    """Device memory of one build of ``scenes``: the peak above what was
+    allocated before it, the peak so far when K2 and when K3 start, its
+    output, and K2's scratch."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    fmb = of.build_featuremap_batch(scenes, params, device=device)
+    at = {}
+
+    def peak_at(name, fn):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            at[name] = (torch.cuda.max_memory_allocated() - base) / 1e6
+            return fn(*args, **kw)
+        return wrapped
+    saved = dt_mod.minplus_rows, fm_mod.propagate_orientation
+    dt_mod.minplus_rows = peak_at("K2", saved[0])
+    fm_mod.propagate_orientation = peak_at("K3", saved[1])
+    try:
+        fmb = of.build_featuremap_batch(scenes, params, device=device)
+    finally:
+        dt_mod.minplus_rows, fm_mod.propagate_orientation = saved
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     held = torch.cuda.memory_allocated() - base
@@ -379,7 +421,9 @@ def build_memory(scenes, params, device):
     print(f"[memory] {len(scenes)}-scene build: peak {peak / 1e6:.1f} MB above "
           f"the {base / 1e6:.1f} MB allocated before it, its output "
           f"{held / 1e6:.1f} MB ({tuple(fmb.dt3.shape)} stack "
-          f"{nbytes(fmb.dt3) / 1e6:.1f} MB), K2 scratch {scratch / 1e6:.1f} MB")
+          f"{nbytes(fmb.dt3) / 1e6:.1f} MB), K2 scratch {scratch / 1e6:.1f} MB; "
+          f"peak so far when K2 starts {at['K2']:.1f} MB, when K3 starts "
+          f"{at['K3']:.1f} MB")
 
 
 def phase_kernels(banks, params, searcher, optimizer, penalty, device):
@@ -394,8 +438,9 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
                    "K4_sweep_stack": (integral_mod, "sweep_stack")}) as build_rec:
         of.build_featuremap_batch(scenes, params, device=device)
     build_memory(scenes, params, device)
-    with generation(4), Recorder({"K1_window_scores": (ops_window,
-                                                       "window_scores")}) as search_rec:
+    with generation(4), Recorder({
+            "K1_window_scores": (ops_window, "window_scores"),
+            "K1_tile_stack": (ops_window, "tile_stack")}) as search_rec:
         bank, lengths = make_bank(templates, device)
         of.match_many(scenes[:3], bank, params, searcher, optimizer,
                       penalty=penalty, template_lengths=lengths, top_k=TOP_K,
@@ -409,13 +454,15 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
     check(main_pass, "no two-sided window call was recorded")
     # the one-sided pattern on the whole main-pass candidate set too: random
     # resume steps, negative direction
-    (li, ep, sid, wt, tr, v, t0), _ = main_pass[0]
+    (li, ep, sid, wt, tr, v, t0), main_kw = main_pass[0]
     gen = torch.Generator(device="cpu").manual_seed(1)
     t0r = torch.randint(1, 60, (t0.shape[0],), generator=gen).float().to(device)
     one_sided = [((li, ep, sid, wt, tr, (-v).contiguous(), t0r),
-                  dict(count=ops_window.K_POS, two_sided=False))]
+                  dict(count=ops_window.K_POS, two_sided=False,
+                       tiles=main_kw["tiles"]))]
     cases = dict(build_rec.calls)
     cases["K1_window_scores"] = main_pass + ext_pass + one_sided
+    cases["K1_tile_stack"] = search_rec.calls["K1_tile_stack"][:1]
     for version in (2, 3):
         cases[WINDOW_KERNEL[version]] = record_generation(
             version, bank, scenes, params, searcher, penalty, device, lengths)
@@ -427,8 +474,8 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
         n_bad, err, shapes = 0, 0.0, []
         for args, kw in calls:
             got = kernel(*fresh(args), **kw)
-            want = plain(*(fresh(args) if name in BUILD_KERNELS else to_cpu(args)),
-                         **kw)
+            want = plain(*(fresh(args) if name in PLAIN_ON_CARD else to_cpu(args)),
+                         **plain_kw(kw))
             torch.cuda.synchronize()
             n_bad += mismatches(got, want)
             err = max(err, max_abs_err(got, want))
@@ -437,7 +484,8 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
             del got, want
         # K4 works in place: each timing loop runs on its own copy
         k_each = [cuda_ms(lambda a=fresh(a), k=k: kernel(*a, **k), 10) for a, k in calls]
-        p_each = [cuda_ms(lambda a=fresh(a), k=k: plain(*a, **k), 2) for a, k in calls]
+        p_each = [cuda_ms(lambda a=fresh(a), k=plain_kw(k): plain(*a, **k), 2)
+                  for a, k in calls]
         k_ms, p_ms = sum(k_each), sum(p_each)
         b_ms, b_by, b_each = bound(name, calls)
         print(f"[kernel] {name}: {len(calls)} call(s) {shapes}: mismatches "
@@ -450,8 +498,57 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
         check(n_bad == 0, f"{name}: {n_bad} elements differ from the plain version")
         report[name] = dict(mismatches=n_bad, max_abs_err=err, ms=k_ms,
                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                            library_ms=None)
+                            library_ms=library_ms(name, calls))
+    k1_split(main_pass[0])
     return report, cases
+
+
+def library_ms(name, calls):
+    """The time of one PyTorch call computing the kernel's function on the
+    same inputs, summed over the calls, where there is one: for K1's tile
+    copy on a canvas of whole tiles, one permuting copy; else None."""
+    if name != "K1_tile_stack":
+        return None
+    total = 0.0
+    for (li,), _ in calls:
+        n, th, tw, _ = ops_window.tile_shape(li.shape)
+        if li.shape[-2:] != (th * 4, tw * 8):
+            return None
+        view = li.reshape(n, th, 2, 2, tw, 2, 4).permute(0, 1, 4, 2, 5, 3, 6)
+        check(mismatches(view.contiguous().reshape(n, th, tw, 32),
+                         ops_window.tile_stack(li)) == 0,
+              "K1_tile_stack: the permuting copy differs")
+        total += cuda_ms(view.contiguous, 10)
+    return total
+
+
+def k1_split(call):
+    """K1 on the main pass's x-major (|v.x| = 1) and y-major (|v.y| = 1,
+    |v.x| < 1) candidates apart, on the tiled copy and on the row-major
+    stack: mismatches against the plain version, time, bound."""
+    args, kw = call
+    v, wt = args[5], args[3]
+    x_major = v[:, 0].abs() == 1
+    y_major = (v[:, 1].abs() == 1) & ~x_major
+    rest = ~x_major & ~y_major
+    print(f"[kernel] K1 main pass split: {int(x_major.sum())} x-major, "
+          f"{int(y_major.sum())} y-major, {int(rest.sum())} others (null step, "
+          f"{int((wt[rest] != 0).sum())} lines of nonzero weight) of "
+          f"{v.shape[0]} candidates")
+    for label, sel in (("x-major", x_major), ("y-major", y_major)):
+        idx = sel.nonzero()[:, 0]
+        sub = (args[0],) + tuple(a[idx].contiguous() for a in args[1:])
+        want = ops_window.window_scores_plain(*to_cpu(sub), **plain_kw(kw))
+        line = []
+        for layout, k in (("tiles", kw), ("rows", plain_kw(kw))):
+            n_bad = mismatches(ops_window.window_scores(*sub, **k), want)
+            check(n_bad == 0, f"K1 {label} ({layout}): {n_bad} elements differ")
+            ms = cuda_ms(lambda k=k: ops_window.window_scores(*sub, **k), 10)
+            line.append(f"{layout} {ms:.4f} ms")
+        b_ms, b_by, _ = bound("K1_window_scores", [(sub, kw)])
+        print(f"[kernel] K1 main pass, {label}: {idx.numel()} candidates, "
+              f"mismatches 0 on both layouts, {', '.join(line)}, bound "
+              f"{b_ms:.4f} ms ({b_by})")
 
 
 def make_bank(templates, device):
@@ -597,7 +694,7 @@ def timed_run(banks, params, searcher, optimizer, penalty, device):
 
 
 def check_path_launches(launches, version, label):
-    for name in (WINDOW_KERNEL[version],) + BUILD_KERNELS:
+    for name in SEARCH_KERNELS[version] + BUILD_KERNELS:
         check(launches[name] > 0, f"{label}: kernel {name} was not launched")
 
 
@@ -720,31 +817,58 @@ def phase_generations(banks, params, searcher, penalty, device, batch_ref):
     return launches_by_gen
 
 
-def phase_profile(banks, params, searcher, optimizer, penalty, device, top=20):
-    """One more slice run under ``torch.profiler``: device time by kernel
-    name, the device's busy share of the run's wall time, and the share of
-    device time in the port's kernels."""
+def profiled(fn):
+    """Run ``fn`` under ``torch.profiler``: ``(rows, wall s)``, rows
+    ``(kernel name, launches, device ms)`` by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_slice(banks, params, searcher, optimizer, penalty, device, None)
+        fn()
         wall = time.perf_counter() - t0
     # device-side events only: the ops that launched them report the same time
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[2])
+    return sorted(rows, key=lambda r: -r[2]), wall
+
+
+def phase_profile(banks, params, searcher, optimizer, penalty, device, report,
+                  top=20):
+    """One more slice run under ``torch.profiler``: device time by kernel
+    name, the device's busy share of the run's wall time, the share of
+    device time in the port's kernels, and K3's time per launch beside its
+    CUDA-event time in ``report``; then one DefaultOptimize run under
+    window generations 2 and 3 each: their window kernels' device time."""
+    rows, wall = profiled(lambda: run_slice(banks, params, searcher, optimizer,
+                                            penalty, device, None))
     busy = sum(r[2] for r in rows)
-    ours = sum(r[2] for r in rows if any(
-        k in r[0] for k in ("edt_rows_kernel(", "prop_kernel(",
-                            "sweep_paths_kernel(", "window_kernel(",
-                            "window_v2_kernel(", "window_v3_kernel(")))
+    ours = sum(r[2] for r in rows if any(k in r[0] for k in PROFILE_NAMES))
     print(f"[profile] wall {wall * 1e3:.3f} ms (profiled), device busy "
           f"{busy:.3f} ms ({busy / (wall * 1e3):.3f} of wall), the port's "
           f"kernels {ours:.3f} ms ({ours / max(busy, 1e-9):.3f} of device time)")
     for name, count, ms in rows[:top]:
         print(f"[profile] {ms:10.3f} ms {count:7d}x  {name[:110]}")
+    k3 = [r for r in rows if "prop_fixed" in r[0] or "prop_any" in r[0]]
+    check(k3, "the profile shows no K3 launch")
+    n3, ms3 = sum(r[1] for r in k3), sum(r[2] for r in k3)
+    ev = report["K3_propagate_orientation"]["ms"]
+    print(f"[profile] K3 per 10-scene launch: {ms3 / n3:.4f} ms in the profile "
+          f"({n3} launches, {[r[0][:60] for r in k3]}), {ev:.4f} ms by CUDA "
+          f"events on the recorded build (phase 3)")
+    for version, kernel in ((2, "window_v2_kernel"), (3, "window_v3_kernel")):
+        with generation(version):
+            rows, wall = profiled(lambda: run_slice(
+                banks, params, searcher, of.DefaultOptimize(), penalty, device,
+                None))
+        mine = [r for r in rows if kernel in r[0]]
+        k1 = [r for r in rows if "window_kernel" in r[0]]
+        check(mine, f"the generation-{version} profile shows no {kernel}")
+        print(f"[profile] DefaultOptimize, generation {version}: {kernel} "
+              f"{sum(r[2] for r in mine):.3f} ms over {sum(r[1] for r in mine)} "
+              f"launches, K1 {sum(r[2] for r in k1):.3f} ms over "
+              f"{sum(r[1] for r in k1)}, device busy "
+              f"{sum(r[2] for r in rows):.3f} ms, wall {wall * 1e3:.3f} ms")
 
 
 def main(argv=None) -> int:
@@ -767,7 +891,7 @@ def main(argv=None) -> int:
     by_gen = phase_generations(banks, params, searcher, penalty, device,
                                batch_ref)
     with generation(4):
-        phase_profile(banks, *cfg)
+        phase_profile(banks, *cfg, report)
     # each kernel's count from the run of the path it serves
     launches["K5_window_v2"] = by_gen[2]["K5_window_v2"]
     launches["K6_window_v3"] = by_gen[3]["K6_window_v3"]
@@ -775,11 +899,12 @@ def main(argv=None) -> int:
                     launches=launches[name], **report[name])
                for name, (_, _, src, rep) in KERNELS.items()]
     for k in kernels:
+        lib = (f"one PyTorch call {k['library_ms']:.4f} ms" if k["library_ms"]
+               else "no single PyTorch call computes its function")
         print(f"[kernels] {k['name']}: {k['ms']:.4f} ms over its recorded "
               f"calls, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
               f"{100 * k['bound_ms'] / k['ms']:.1f} % of bound, "
-              f"{k['launches']} launches per main-path run; no single "
-              f"PyTorch call computes its function")
+              f"{k['launches']} launches per main-path run; {lib}")
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {card}")
     print(json.dumps({"ok": True, "device": {

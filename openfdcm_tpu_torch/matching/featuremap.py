@@ -164,7 +164,7 @@ def propagation_steps(angles, coeff: float):
 
 def propagate_orientation_relax(dt3: torch.Tensor, steps) -> torch.Tensor:
     """Reference-order sequential relaxation across the orientation axis of
-    ``dt3 (..., D, H, W)`` — kernel K3."""
+    ``dt3 (..., D, H, W)`` — kernel K3, in place: returns ``dt3``."""
     return propagate_orientation(dt3, steps)
 
 

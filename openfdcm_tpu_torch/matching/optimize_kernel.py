@@ -14,7 +14,9 @@ package's own switch (:func:`kernel_version`):
 
 - 4 (default): kernel K1 (:mod:`openfdcm_tpu_torch.ops.window`), exact
   probes on every lane, uniform coverage ``TC = 63`` (the TPU generation
-  4's per-candidate caps came from VMEM patch sizes and are dropped);
+  4's per-candidate caps came from VMEM patch sizes and are dropped); every
+  K1 call of a dispatch reads one tiled copy of the stack
+  (:func:`~openfdcm_tpu_torch.ops.window.tile_stack`);
 - 3: kernel K6 (:mod:`openfdcm_tpu_torch.ops.window_v3`), per-candidate
   ``tc`` from the row budget and the one-chunk column fit, with deviant
   candidates quarantined;
@@ -183,9 +185,11 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
     t_pos = torch.where(valid_f, torch.trunc(torch.where(valid_f, pos.reshape(m), 0.0)), 0.0)
     t_neg = torch.where(valid_f, torch.trunc(torch.where(valid_f, -neg.reshape(m), 0.0)), 0.0)
 
+    # generation 4 reads the tiled copy of the stack in every K1 call
+    tiles = wk.tile_stack(li) if version == 4 else None
     if version == 4:
         win = wk.window_scores(li, ep, sid, wt, tr, safe_rast, zero,
-                               count=wk.K_LANES, two_sided=True)
+                               count=wk.K_LANES, two_sided=True, tiles=tiles)
         tc = torch.full((m,), float(TC), device=dev)
     else:
         entry = wk3.window_scores_v3 if version == 3 else wk2.window_scores_v2
@@ -209,7 +213,7 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
         def f(t0):
             return wk.window_scores(li, ep[sel], sid[sel], wt[sel], tr[sel],
                                     vdir, t0.contiguous(), count=count,
-                                    two_sided=False)
+                                    two_sided=False, tiles=tiles)
         return f
 
     def ext_eval(sel, active, sign, t0):
@@ -219,7 +223,7 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
                                 float(TC), 0.0)
             return wk.window_scores(li, ep[sel], sid[sel], wt[sel], tr[sel],
                                     vdir, t0.contiguous(), count=wk.K_POS,
-                                    two_sided=False), cover
+                                    two_sided=False, tiles=tiles), cover
         entry = wk3.window_scores_v3_ext if version == 3 \
             else wk2.window_scores_v2_ext
         return entry(li, ep[sel], cm_flat[sel], vdir, active, si_raw[sel],

@@ -17,6 +17,7 @@ from ..core import geometry as geo
 from ..core import integral
 from ..core.dt import dt_from_indicator
 from ..core.types import resolve_device
+from ..ops.window import tile_shape
 from ..profiling import maybe_stage
 from . import featuremap as fm
 from . import optimize as opt
@@ -91,17 +92,19 @@ def build_featuremap_batch(scenes, params: fm.Dt3Params = fm.Dt3Params(),
         feature_sizes=tuple((w, h) for _, (w, h) in metas), params=params)
 
 
-def _scene_chunk(c_per_scene: int, lmax: int, device: torch.device) -> int:
+def _scene_chunk(c_per_scene: int, lmax: int, tile_bytes: int,
+                 device: torch.device) -> int:
     """Scenes per search dispatch, sized by device memory: about 16 bytes
     per candidate line for each of ~8 live candidate tensors plus the
-    128-lane window, against a quarter of free device memory (1 GiB on the
-    CPU)."""
+    128-lane window, and the scene's part of the tiled stack copy that
+    kernel K1 reads (``tile_bytes``), against a quarter of free device
+    memory (1 GiB on the CPU)."""
     per_cand = 8 * 16 * lmax + 4 * 1024
     if device.type == "cuda":
         budget = torch.cuda.mem_get_info(device)[0] // 4
     else:
         budget = 1 << 30
-    return max(1, budget // max(per_cand * c_per_scene, 1))
+    return max(1, budget // max(per_cand * c_per_scene + tile_bytes, 1))
 
 
 def match_many(scenes, templates, params: fm.Dt3Params, searcher, optimizer,
@@ -167,8 +170,10 @@ def match_many_async(scenes, templates, params: fm.Dt3Params, searcher,
 
     mt, ms = searcher.get_max_tmpl_lines(), searcher.get_max_scene_lines()
     c_per_scene = 2 * len(bank.host) * min(mt, bank.lmax) * ms
-    if scene_chunk is None:
-        scene_chunk = _scene_chunk(c_per_scene, bank.lmax, device)
+    if scene_chunk is None and buckets:
+        phys = max(buckets)
+        tile_bytes = 4 * int(np.prod(tile_shape((1, params.depth, phys, phys))))
+        scene_chunk = _scene_chunk(c_per_scene, bank.lmax, tile_bytes, device)
 
     out = [[] for _ in scenes]
     deferred = []

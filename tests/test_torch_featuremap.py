@@ -17,6 +17,7 @@ from openfdcm_tpu_torch.core import integral as tintegral
 from openfdcm_tpu_torch.core.types import Distance
 from openfdcm_tpu_torch.matching import featuremap as tfm
 from openfdcm_tpu_torch.matching import pipeline as tpipe
+from openfdcm_tpu_torch.ops import prop as tprop
 from openfdcm_tpu_torch.ops.integral import sweep_stack_plain
 from tests.utils import create_lines, make_rotation
 
@@ -51,6 +52,74 @@ def test_propagate_orientation_relax_bit_equal():
     want = np.asarray(jfm.propagate_orientation_relax(jnp.asarray(dt3), steps))
     got = tfm.propagate_orientation_relax(torch.as_tensor(dt3), steps).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_k3_reference_pattern_matches_propagation_steps():
+    """The step pattern ``prop_fixed<D, V>`` unrolls at compile time
+    (``csrc/prop.cu``, mirrored by ``reference_pattern``) is the port's and
+    the JAX package's schedule at every depth the kernel takes, and its
+    length fits the kernel's parameter block."""
+    for depth in range(1, tprop.MAX_DEPTH + 1):
+        angles = tfm.make_angles(depth)
+        port = tfm.propagation_steps(angles, 5.0)
+        jax_steps = jfm.propagation_steps(tuple(float(a) for a in angles), 5.0)
+        assert [(a, b) for a, b, _ in port] == tprop.reference_pattern(depth)
+        assert [(a, b) for a, b, _ in jax_steps] == tprop.reference_pattern(depth)
+        assert len(port) == 4 * depth <= tprop.MAX_STEPS
+
+
+def k3_mirror(dt3: np.ndarray, weights, depth: int, pixels: int) -> np.ndarray:
+    """``prop_fixed<depth, pixels>`` on a host copy: thread ``p`` of stack
+    ``p // (HW / V)`` holds pixels ``V (p % (HW / V)) + j``; the unrolled
+    forward then backward steps with the NaN-propagating min, in f32."""
+    *lead, d, h, w = dt3.shape
+    hw = h * w
+    flat = dt3.reshape(-1, d, hw).copy()
+    p = np.arange(flat.shape[0] * hw // pixels)
+    st, grp = np.divmod(p, hw // pixels)
+    visits = np.zeros((flat.shape[0], hw), np.int64)
+    for j in range(pixels):
+        pix = pixels * grp + j
+        np.add.at(visits, (st, pix), 1)
+        v = flat[st, :, pix].T.copy()                      # (D, threads)
+        for (a, b), wgt in zip(tprop.reference_pattern(depth), weights):
+            cand = v[a] + np.float32(wgt)
+            v[b] = np.where((cand < v[b]) | np.isnan(cand), cand, v[b])
+        flat[st, :, pix] = v.T
+    assert (visits == 1).all()
+    return flat.reshape(dt3.shape)
+
+
+@pytest.mark.parametrize("depth,h,w,pixels", [(12, 10, 14, 2), (30, 16, 24, 2),
+                                              (30, 7, 9, 1), (60, 6, 8, 1)])
+def test_k3_mirror_and_in_place_wrapper(depth, h, w, pixels):
+    """The mirror of the unrolled kernel, the in-place wrapper (its return
+    value is its input) and the JAX package agree bit for bit, NaN
+    included."""
+    rng = np.random.default_rng(depth + h)
+    dt3 = rng.uniform(0, 60, (2, depth, h, w)).astype(np.float32)
+    dt3[1, 2, 3, 4] = np.nan
+    steps = tfm.propagation_steps(tfm.make_angles(depth), 5.0)
+    want = np.asarray(jfm.propagate_orientation_relax(jnp.asarray(dt3), steps))
+    got = k3_mirror(dt3, [s[2] for s in steps], depth, pixels)
+    np.testing.assert_array_equal(got, want)
+    x = torch.tensor(dt3)
+    assert tprop.propagate_orientation(x, steps) is x
+    np.testing.assert_array_equal(x.numpy(), want)
+
+
+def test_k3_other_step_lists_in_place():
+    """A step list that is not the reference pattern (the general kernel's
+    case) runs the plain chain, in place, on the CPU too."""
+    rng = np.random.default_rng(3)
+    dt3 = rng.uniform(0, 60, (7, 5, 6)).astype(np.float32)
+    steps = tfm.propagation_steps(tfm.make_angles(7), 2.0)[::-1]
+    want = tprop.propagate_orientation_plain(torch.tensor(dt3), steps)
+    x = torch.tensor(dt3)
+    assert tprop.propagate_orientation(x, steps) is x
+    np.testing.assert_array_equal(x.numpy(), want.numpy())
+    with pytest.raises(ValueError, match="steps"):
+        tprop.propagate_orientation(x, steps * 14)
 
 
 def test_line_integral_stack_bit_equal_padded_canvas():

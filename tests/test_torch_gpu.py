@@ -66,6 +66,38 @@ def test_prop_kernel_bit_equal():
           prop.propagate_orientation_plain(x, steps))
 
 
+@pytest.mark.parametrize("depth,h,w", [(30, 640, 640), (60, 640, 640),
+                                       (30, 33, 71), (12, 31, 33)])
+def test_prop_kernel_in_place(depth, h, w):
+    """K3 at the repo's depths on a 640 px canvas (the unrolled kernel, two
+    pixels a thread below depth 60) and on odd canvases (one pixel a
+    thread), in place: the returned tensor is the input, and NaN
+    propagates."""
+    rng = np.random.default_rng(depth)
+    x = torch.as_tensor(rng.uniform(0, 100, (2, depth, h, w)).astype(np.float32))
+    x[0, 3, 5, 7] = float("nan")
+    steps = tfm.propagation_steps(tfm.make_angles(depth), 5.0)
+    want = prop.propagate_orientation_plain(x, steps)
+    dev = x.cuda()
+    before = prop.propagate_orientation.launches
+    assert prop.propagate_orientation(dev, steps) is dev
+    assert prop.propagate_orientation.launches == before + 1
+    _same(dev, want)
+
+
+@pytest.mark.parametrize("depth,reverse", [(7, False), (30, True)])
+def test_prop_general_kernel_in_place(depth, reverse):
+    """The general kernel: a depth with no unrolled instantiation, and the
+    depth-30 steps in another order."""
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.uniform(0, 100, (3, depth, 33, 70)).astype(np.float32))
+    steps = tfm.propagation_steps(tfm.make_angles(depth), 3.0)
+    steps = steps[::-1] if reverse else steps
+    dev = x.cuda()
+    assert prop.propagate_orientation(dev, steps) is dev
+    _same(dev, prop.propagate_orientation_plain(x, steps))
+
+
 @pytest.mark.parametrize("x_major", [True, False])
 @pytest.mark.parametrize("flip", [False, True])
 def test_sweep_kernel_bit_equal(x_major, flip):
@@ -118,6 +150,74 @@ def test_window_kernel_bit_equal(count, two_sided):
     _same(window.window_scores(*(a.cuda() for a in cpu), count=count,
                                two_sided=two_sided),
           window.window_scores_plain(*cpu, count=count, two_sided=two_sided))
+
+
+def _rasterized_case(seed, shape, m, n_lines):
+    """K1 inputs on a multi-slice stack: rasterized step vectors of both
+    majors and signs (the first ten fixed); endpoints inside the canvas, 70
+    px or a third of it from the edges, except every third candidate's,
+    which lie anywhere up to 40 px beyond each edge; slice ids at both ends
+    of the stack and outside it; weight-0 lines and a weight-0 candidate."""
+    rng = np.random.default_rng(seed)
+    s, d, h, w = shape
+    ang = rng.uniform(0, 2 * np.pi, m)
+    v = np.stack([np.cos(ang), np.sin(ang)], -1)
+    v = v / np.abs(v).max(-1, keepdims=True)
+    v[:10] = [[1, 0.3], [-1, -0.7], [0.2, 1], [-0.9, -1], [1, 0], [0, 1],
+              [-1, 0], [0, -1], [1, 1], [-1, 1]]
+    wide = (np.arange(m) % 3 == 0)[:, None]
+
+    def coord(size):
+        inner = min(70.0, size / 3)
+        return np.where(wide, rng.uniform(-40, size + 40, (m, n_lines)),
+                        rng.uniform(inner, size - inner, (m, n_lines)))
+    ep = np.stack([coord(w), coord(h), coord(w), coord(h)], -1)
+    sid = rng.integers(0, s * d, (m, n_lines))
+    sid[::3, 0], sid[1::3, -1] = 0, s * d - 1
+    sid[::7, -1], sid[::11, 0] = -1, s * d
+    wt = np.where(rng.uniform(size=(m, n_lines)) < 0.75,
+                  rng.uniform(0.5, 2.0, (m, n_lines)), 0.0)
+    wt[5] = 0.0
+    return tuple(torch.as_tensor(a) for a in (
+        rng.uniform(0, 100, shape).astype(np.float32), ep.astype(np.float32),
+        sid.astype(np.int32), wt.astype(np.float32),
+        rng.uniform(-3, 3, (m, 2)).astype(np.float32), v.astype(np.float32),
+        rng.integers(0, 50, m).astype(np.float32)))
+
+
+@pytest.mark.parametrize("count,two_sided", [(128, True), (64, False), (10, False),
+                                             (1, False)])
+def test_window_kernel_rasterized_640(count, two_sided):
+    """K1 on both layouts (the tiled copy and the row-major stack) against
+    the plain version: rasterized x- and y-major walks over a 640 px
+    three-slice stack, probes that leave the slice at each edge and the
+    stack at both ends, every lane pattern, weight-0 lines."""
+    cpu = _rasterized_case(7, (1, 3, 640, 640), 300, 12)
+    if two_sided:
+        cpu = cpu[:-1] + (torch.zeros_like(cpu[-1]),)
+    want = window.window_scores_plain(*cpu, count=count, two_sided=two_sided)
+    dev = tuple(a.cuda() for a in cpu)
+    tiles = window.tile_stack(dev[0])
+    for kw in (dict(tiles=tiles), {}):
+        before = window.window_scores.launches
+        _same(window.window_scores(*dev, count=count, two_sided=two_sided, **kw),
+              want)
+        assert window.window_scores.launches == before + 1
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 640, 640), (2, 3, 42, 57)])
+def test_tile_stack_kernel_bit_equal(shape):
+    """K1's tile copy against its plain version, on whole tiles and on a
+    canvas that pads its last tile row and column (and a tiled read of the
+    padded canvas against the plain window scores)."""
+    cpu = _rasterized_case(8, shape, 120, 9)
+    before = window.tile_stack.launches
+    tiles = window.tile_stack(cpu[0].cuda())
+    assert window.tile_stack.launches == before + 1
+    _same(tiles, window.tile_stack_plain(cpu[0]))
+    _same(window.window_scores(*(a.cuda() for a in cpu), count=64,
+                               two_sided=False, tiles=tiles),
+          window.window_scores_plain(*cpu, count=64, two_sided=False))
 
 
 @pytest.mark.parametrize("major", ["x", "y"])
