@@ -16,14 +16,14 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
    add sequences and run on the card), the window kernels on CPU copies of
    the two-sided main pass, the one-sided extension pass and the one-sided
    pattern on the whole main-pass set from seeded resume steps (K1 from a
-   BatchOptimize dispatch, reading the dispatch's tiled stack copy, whose
-   kernel runs against its plain version on the card; K5 and K6 from
-   DefaultOptimize dispatches under window generations 2 and 3); each
+   BatchOptimize dispatch, K5 and K6 from DefaultOptimize dispatches under
+   window generations 2 and 3, each reading its dispatch's tiled stack
+   copy, whose kernel runs against its plain version on the card); each
    kernel's time beside its bound (bytes over 3.35 TB/s or operations over
-   67 TFLOP/s, whichever is larger); K1's main pass split into its x-major
-   (|v.x| = 1) and y-major candidates, each on the tiled copy and on the
-   row-major stack; plus CUDA ``/`` and sqrt against numpy on 1M random f32
-   pairs;
+   67 TFLOP/s, whichever is larger); the main pass of K1, K5 and K6 split
+   into its x-major and y-major candidates, each on the tiled copy and on
+   the row-major stack; plus CUDA ``/`` and sqrt against numpy on 1M random
+   f32 pairs;
 4. small reference: the slice on CUDA against the slice on the CPU on a
    small input, BatchOptimize, and DefaultOptimize under each generation;
 5. slice: ``match_many(..., top_k=10, device="cuda")`` on a seeded synthetic
@@ -43,7 +43,7 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
    device time by kernel, the device's busy share of the run, and K3's
    time per launch beside its CUDA-event time from phase 3; then one
    DefaultOptimize run each under generations 2 and 3, for K5's and K6's
-   device time per run.
+   device time per run beside K1's and the tile copy's.
 """
 from __future__ import annotations
 
@@ -114,9 +114,11 @@ HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # the window kernel of each generation's main and extension pass
 WINDOW_KERNEL = {2: "K5_window_v2", 3: "K6_window_v3", 4: "K1_window_scores"}
 # the kernels each generation's search must launch
-SEARCH_KERNELS = {2: ("K5_window_v2",), 3: ("K6_window_v3",),
+SEARCH_KERNELS = {2: ("K5_window_v2", "K1_tile_stack"),
+                  3: ("K6_window_v3", "K1_tile_stack"),
                   4: ("K1_window_scores", "K1_tile_stack")}
-# the kernels' names in a profile
+# the kernels' names in a profile (K1's "window_kernel" is no substring of
+# K5's or K6's name)
 PROFILE_NAMES = ("edt_rows_kernel", "prop_fixed", "prop_any",
                  "sweep_paths_kernel", "window_kernel", "tile_kernel",
                  "window_v2_kernel", "window_v3_kernel")
@@ -366,8 +368,10 @@ def record_generation(version, bank, scenes, params, searcher, penalty,
                       penalty=penalty, template_lengths=lengths, top_k=TOP_K,
                       device=device, scene_chunk=3)
         check(rec.calls["main"], f"no generation-{version} main pass was recorded")
-        (li, scene_tr, cand_lines, cand_mask, rast, valid, slice_idx), _ = \
+        (li, scene_tr, cand_lines, cand_mask, rast, valid, slice_idx), main_kw = \
             rec.calls["main"][0]
+        check(main_kw.get("tiles") is not None,
+              f"the generation-{version} main pass read no tiled copy")
         n_ext = len([c for c in rec.calls[name] if not c[1]["two_sided"]])
         s, c, l = cand_mask.shape
 
@@ -377,8 +381,9 @@ def record_generation(version, bank, scenes, params, searcher, penalty,
             li, cand_lines.reshape(s * c, l, 4), cand_mask.reshape(s * c, l),
             (-rast.reshape(s * c, 2)).contiguous(), valid.reshape(s * c),
             slice_idx.reshape(s * c, l),
-            torch.arange(s, device=device).repeat_interleave(c), scene_tr, t0r)
-    _, tc = getattr(mod, main_name)(*rec.calls["main"][0][0])
+            torch.arange(s, device=device).repeat_interleave(c), scene_tr, t0r,
+            tiles=main_kw["tiles"])
+    _, tc = getattr(mod, main_name)(*rec.calls["main"][0][0], **main_kw)
     print(f"[kernel] generation {version}, 3-scene dispatch: "
           f"{int(((tc == 0) & valid).sum())} of {int(valid.sum())} valid "
           f"candidates with tc = 0 (quarantined), tc median "
@@ -499,7 +504,8 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
         report[name] = dict(mismatches=n_bad, max_abs_err=err, ms=k_ms,
                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=library_ms(name, calls))
-    k1_split(main_pass[0])
+    for name in WINDOW_KERNEL.values():
+        major_split(name, cases[name][0])
     return report, cases
 
 
@@ -522,31 +528,40 @@ def library_ms(name, calls):
     return total
 
 
-def k1_split(call):
-    """K1 on the main pass's x-major (|v.x| = 1) and y-major (|v.y| = 1,
-    |v.x| < 1) candidates apart, on the tiled copy and on the row-major
-    stack: mismatches against the plain version, time, bound."""
+def major_split(name, call):
+    """A window kernel's main pass on its x-major and y-major candidates
+    apart, on the tiled copy and on the row-major stack: mismatches against
+    the plain version, time, bound.  K1's candidates split by their step
+    vector (|v.x| = 1, else |v.y| = 1; null steps apart), K5's and K6's by
+    their ``x_major`` input."""
+    kernel, plain = KERNELS[name][:2]
     args, kw = call
-    v, wt = args[5], args[3]
-    x_major = v[:, 0].abs() == 1
-    y_major = (v[:, 1].abs() == 1) & ~x_major
+    if name == "K1_window_scores":
+        v = args[5]
+        x_major = v[:, 0].abs() == 1
+        y_major = (v[:, 1].abs() == 1) & ~x_major
+    else:
+        x_major = args[-1] != 0
+        y_major = ~x_major
     rest = ~x_major & ~y_major
-    print(f"[kernel] K1 main pass split: {int(x_major.sum())} x-major, "
-          f"{int(y_major.sum())} y-major, {int(rest.sum())} others (null step, "
-          f"{int((wt[rest] != 0).sum())} lines of nonzero weight) of "
-          f"{v.shape[0]} candidates")
+    live = (args[WINDOW_WEIGHTS[name]] != 0).any(dim=1)
+    counts = [f"{int(sel.sum())} {label} ({int((sel & live).sum())} with a "
+              f"line of nonzero weight)" for label, sel in (
+                  ("x-major", x_major), ("y-major", y_major), ("others", rest))]
+    print(f"[kernel] {name} main pass split: {', '.join(counts)} of "
+          f"{x_major.numel()} candidates")
     for label, sel in (("x-major", x_major), ("y-major", y_major)):
         idx = sel.nonzero()[:, 0]
         sub = (args[0],) + tuple(a[idx].contiguous() for a in args[1:])
-        want = ops_window.window_scores_plain(*to_cpu(sub), **plain_kw(kw))
+        want = plain(*to_cpu(sub), **plain_kw(kw))
         line = []
         for layout, k in (("tiles", kw), ("rows", plain_kw(kw))):
-            n_bad = mismatches(ops_window.window_scores(*sub, **k), want)
-            check(n_bad == 0, f"K1 {label} ({layout}): {n_bad} elements differ")
-            ms = cuda_ms(lambda k=k: ops_window.window_scores(*sub, **k), 10)
+            n_bad = mismatches(kernel(*sub, **k), want)
+            check(n_bad == 0, f"{name} {label} ({layout}): {n_bad} elements differ")
+            ms = cuda_ms(lambda k=k: kernel(*sub, **k), 10)
             line.append(f"{layout} {ms:.4f} ms")
-        b_ms, b_by, _ = bound("K1_window_scores", [(sub, kw)])
-        print(f"[kernel] K1 main pass, {label}: {idx.numel()} candidates, "
+        b_ms, b_by, _ = bound(name, [(sub, kw)])
+        print(f"[kernel] {name} main pass, {label}: {idx.numel()} candidates, "
               f"mismatches 0 on both layouts, {', '.join(line)}, bound "
               f"{b_ms:.4f} ms ({b_by})")
 
@@ -863,12 +878,15 @@ def phase_profile(banks, params, searcher, optimizer, penalty, device, report,
                 None))
         mine = [r for r in rows if kernel in r[0]]
         k1 = [r for r in rows if "window_kernel" in r[0]]
+        copy = [r for r in rows if "tile_kernel" in r[0]]
         check(mine, f"the generation-{version} profile shows no {kernel}")
         print(f"[profile] DefaultOptimize, generation {version}: {kernel} "
               f"{sum(r[2] for r in mine):.3f} ms over {sum(r[1] for r in mine)} "
               f"launches, K1 {sum(r[2] for r in k1):.3f} ms over "
-              f"{sum(r[1] for r in k1)}, device busy "
-              f"{sum(r[2] for r in rows):.3f} ms, wall {wall * 1e3:.3f} ms")
+              f"{sum(r[1] for r in k1)}, tile copy "
+              f"{sum(r[2] for r in copy):.3f} ms over {sum(r[1] for r in copy)}, "
+              f"device busy {sum(r[2] for r in rows):.3f} ms, wall "
+              f"{wall * 1e3:.3f} ms")
 
 
 def main(argv=None) -> int:

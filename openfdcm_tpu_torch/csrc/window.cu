@@ -42,37 +42,15 @@
 
 #include <cstdint>
 
+#include "window_common.cuh"
+
 namespace {
+
+using namespace fdcm;
 
 constexpr int kWarps = 4;         // warps per block
 constexpr int kPos = 64;          // two-sided: lane k < 64 is m = +k, else -(k - 63)
 constexpr int kGroup = 4;         // lines whose probes are in flight together
-constexpr unsigned kFull = 0xffffffffu;
-
-// The stack a kernel reads: the row-major LI stack, or its tiled copy
-// (S*D, ceil(H/4), ceil(W/8), 32): 8 x 4 tiles of four 4 x 2 sectors.
-enum { kRows = 0, kTiles = 1 };
-
-__device__ __forceinline__ long long trunc64(float p) {
-  return __float2ll_rz(fminf(fmaxf(p, -16777216.0f), 16777216.0f));
-}
-
-// trunc(p) for 0 <= p < 2^23: the sum rounds toward zero onto the integer
-// grid of [2^23, 2^24).  Every other p, NaN included, gives 2^23 or more
-// (as unsigned), so "trunc_u(p) < W" holds exactly when 0 <= p < W.
-__device__ __forceinline__ unsigned trunc_u(float p) {
-  return (unsigned)__float_as_int(__fadd_rz(p, 8388608.0f)) - 0x4B000000u;
-}
-
-// offset of in-slice pixel (x, y) in its slice of the stack read
-template <int kLayout>
-__device__ __forceinline__ unsigned slice_offset(unsigned x, unsigned y,
-                                                 unsigned w, unsigned tw) {
-  if (kLayout == kTiles)
-    return ((y >> 2) * tw + (x >> 3)) * 32u + (((y >> 1) & 1u) << 4) +
-           (((x >> 2) & 1u) << 3) + ((y & 1u) << 2) + (x & 3u);
-  return y * w + x;
-}
 
 // the exact probe: the flat row-major index clamped to the stack, then
 // moved to the layout read
@@ -80,14 +58,9 @@ template <int kLayout>
 __device__ long long exact_index(int s, float px, float py, int h, int w,
                                  long long len, unsigned tw,
                                  long long slice_len) {
-  const long long hw = (long long)h * w;
-  long long f = (long long)s * hw + trunc64(py) * w + trunc64(px);
+  long long f = (long long)s * h * w + trunc64(py) * w + trunc64(px);
   f = min(max(f, 0LL), len - 1);
-  if (kLayout == kRows) return f;
-  const long long q = f / hw;
-  const int r = (int)(f - q * hw), y = r / w, x = r - y * w;
-  return q * slice_len +
-         slice_offset<kLayout>((unsigned)x, (unsigned)y, (unsigned)w, tw);
+  return layout_index<kLayout>(f, h, w, tw, slice_len);
 }
 
 template <int kLayout>

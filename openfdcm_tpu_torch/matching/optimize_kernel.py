@@ -14,16 +14,17 @@ package's own switch (:func:`kernel_version`):
 
 - 4 (default): kernel K1 (:mod:`openfdcm_tpu_torch.ops.window`), exact
   probes on every lane, uniform coverage ``TC = 63`` (the TPU generation
-  4's per-candidate caps came from VMEM patch sizes and are dropped); every
-  K1 call of a dispatch reads one tiled copy of the stack
-  (:func:`~openfdcm_tpu_torch.ops.window.tile_stack`);
+  4's per-candidate caps came from VMEM patch sizes and are dropped);
 - 3: kernel K6 (:mod:`openfdcm_tpu_torch.ops.window_v3`), per-candidate
   ``tc`` from the row budget and the one-chunk column fit, with deviant
   candidates quarantined;
 - 2: kernel K5 (:mod:`openfdcm_tpu_torch.ops.window_v2`), per-candidate
   ``tc`` from the patch's row budget.
 
-Results do not depend on the generation or on ``TC``
+At every generation, every window-kernel call of a dispatch (K1, K5 or
+K6) reads one tiled copy of the stack
+(:func:`~openfdcm_tpu_torch.ops.window.tile_stack`).  Results do not
+depend on the generation or on ``TC``
 (``tests/test_torch_window.py``, ``tests/test_torch_greedy.py``).
 
 Scene-batched: ``(S, C, ...)`` candidates against an ``(S, D, Q, Q)`` LI
@@ -185,8 +186,8 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
     t_pos = torch.where(valid_f, torch.trunc(torch.where(valid_f, pos.reshape(m), 0.0)), 0.0)
     t_neg = torch.where(valid_f, torch.trunc(torch.where(valid_f, -neg.reshape(m), 0.0)), 0.0)
 
-    # generation 4 reads the tiled copy of the stack in every K1 call
-    tiles = wk.tile_stack(li) if version == 4 else None
+    # every window-kernel call of the dispatch reads the tiled copy
+    tiles = wk.tile_stack(li)
     if version == 4:
         win = wk.window_scores(li, ep, sid, wt, tr, safe_rast, zero,
                                count=wk.K_LANES, two_sided=True, tiles=tiles)
@@ -194,7 +195,7 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
     else:
         entry = wk3.window_scores_v3 if version == 3 else wk2.window_scores_v2
         win, tc = entry(li, scene_tr, cand_lines, cand_mask, rast, valid,
-                        slice_idx)
+                        slice_idx, tiles=tiles)
         win, tc = win.reshape(m, wk.K_LANES), tc.reshape(m).to(torch.float32)
     s0 = win[:, 0]
     if version == 3:
@@ -202,7 +203,7 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
         # trusted lane, not even m = 0: its aligned score comes from K1 (the
         # JAX package keeps the lane's 0, a false perfect match: Queue 3)
         exact0 = wk.window_scores(li, ep, sid, wt, tr, safe_rast, zero,
-                                  count=1, two_sided=False)[:, 0]
+                                  count=1, two_sided=False, tiles=tiles)[:, 0]
         s0 = torch.where(tc == 0, exact0, s0)
     pos_scores = win[:, 1:wk.K_POS]
     neg_scores = win[:, wk.K_POS:]
@@ -227,7 +228,7 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
         entry = wk3.window_scores_v3_ext if version == 3 \
             else wk2.window_scores_v2_ext
         return entry(li, ep[sel], cm_flat[sel], vdir, active, si_raw[sel],
-                     scene_of[sel], scene_tr, t0)
+                     scene_of[sel], scene_tr, t0, tiles=tiles)
 
     if mode == "batch":
         chain_cov = partial(_batch_chain_cov, batch=window)

@@ -97,8 +97,8 @@ def _scene_chunk(c_per_scene: int, lmax: int, tile_bytes: int,
     """Scenes per search dispatch, sized by device memory: about 16 bytes
     per candidate line for each of ~8 live candidate tensors plus the
     128-lane window, and the scene's part of the tiled stack copy that
-    kernel K1 reads (``tile_bytes``), against a quarter of free device
-    memory (1 GiB on the CPU)."""
+    the window kernels read (``tile_bytes``), against a quarter of free
+    device memory (1 GiB on the CPU)."""
     per_cand = 8 * 16 * lmax + 4 * 1024
     if device.type == "cuda":
         budget = torch.cuda.mem_get_info(device)[0] // 4

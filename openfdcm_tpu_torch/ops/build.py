@@ -5,7 +5,8 @@ The kernels are compiled at first use with ``nvcc`` for ``sm_90a``, one
 shared library with a plain C interface, loaded with :mod:`ctypes`.  No
 PyTorch header is compiled, which keeps the build short.  The library lands in
 ``build/openfdcm_tpu_torch/`` beside the package, named by a hash of the
-sources and flags, so an edited source is never served by a stale build.
+sources, their headers and the flags, so an edited source or header is
+never served by a stale build.
 
 Nothing here runs at import time: this module imports on hosts without
 ``nvcc`` or a GPU, where only the kernels' plain PyTorch versions run.
@@ -38,15 +39,21 @@ SIGNATURES = {
     "fdcm_window": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                     _I, _I, _P],
     "fdcm_window_tiles": [_P, _P, _L, _I, _I, _P],
-    "fdcm_window_v2": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
-                       _I, _I, _P],
-    "fdcm_window_v3": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
-                       _I, _I, _P],
+    "fdcm_window_v2": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+                       _I, _I, _I, _P],
+    "fdcm_window_v3": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+                       _I, _I, _I, _P],
 }
 
 
 def sources() -> list[Path]:
+    """The compiled sources, one ``nvcc`` each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    """The headers the sources include (part of the library's hash)."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def find_nvcc() -> str | None:
@@ -60,7 +67,7 @@ def find_nvcc() -> str | None:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libopenfdcm_kernels_{h.hexdigest()[:16]}.so"

@@ -19,7 +19,8 @@ The kernel reads either the row-major stack or its tiled copy
 (:func:`tile_stack`: 8 x 4 tiles of 128 bytes, each 32-byte sector a 4 x 2
 block), which a caller makes once per search dispatch and hands to every
 call: a warp's 32 probes along a y-major ray then touch about 8 cache lines
-instead of 32.  Both give the same scores.
+instead of 32.  Both give the same scores.  Kernels K5 and K6
+(:mod:`.window_v2`, :mod:`.window_v3`) read the same copy.
 
 Replaces ``openfdcm_tpu/ops/window_kernel.py::window_scores_device_v4``
 (Pallas ``_kernel_v4``, via ``window_scores_v4`` and
@@ -82,6 +83,17 @@ def tile_stack(li: torch.Tensor) -> torch.Tensor:
 tile_stack.launches = 0
 
 
+def check_tiles(tiles, li) -> None:
+    """Raise unless ``tiles`` is None or a :func:`tile_stack` of ``li``'s
+    shape (a window wrapper's ``tiles=`` argument)."""
+    if tiles is None:
+        return
+    build.require(tiles, "tiles", torch.float32, 4)
+    if tuple(tiles.shape) != tile_shape(li.shape):
+        raise ValueError(f"tiles {tuple(tiles.shape)}: need "
+                         f"{tile_shape(li.shape)} for li {tuple(li.shape)}")
+
+
 def window_scores_plain(li, ep, sid, wt, tr, v, t0, *, count: int,
                         two_sided: bool) -> torch.Tensor:
     """Plain PyTorch version, any device: a Python loop over lines so the
@@ -128,11 +140,7 @@ def window_scores(li, ep, sid, wt, tr, v, t0, *, count: int,
     build.require(tr, "tr", torch.float32, 2)
     build.require(v, "v", torch.float32, 2)
     build.require(t0, "t0", torch.float32, 1)
-    if tiles is not None:
-        build.require(tiles, "tiles", torch.float32, 4)
-        if tuple(tiles.shape) != tile_shape(li.shape):
-            raise ValueError(f"tiles {tuple(tiles.shape)}: need "
-                             f"{tile_shape(li.shape)} for li {tuple(li.shape)}")
+    check_tiles(tiles, li)
     m_count, n_lines = wt.shape
     if (ep.shape != (m_count, n_lines, 4) or sid.shape != (m_count, n_lines)
             or tr.shape != (m_count, 2) or v.shape != (m_count, 2)

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .window import K_LANES, K_POS, lane_steps
+from .window import K_LANES, K_POS, check_tiles, lane_steps
 from ..core.rasterize import to_int_trunc
 
 PATCH_W = 256          # patch columns (major axis)
@@ -144,21 +144,22 @@ def _fields(li, cand_lines, cand_mask, v, gate, tr, t0, sid, slice_idx, *,
 
 
 def window_scores_v2(li, scene_tr, cand_lines, cand_mask, rast, valid,
-                     slice_idx):
+                     slice_idx, tiles=None):
     """Two-sided main pass (JAX ``window_scores``): ``li (S, D, Q, Q)``,
     ``scene_tr (S, 2)``, ``cand_lines (S, C, L, 4)``, ``cand_mask (S, C, L)``,
-    ``rast (S, C, 2)``, ``valid (S, C)``, ``slice_idx (S, C, L)`` ->
+    ``rast (S, C, 2)``, ``valid (S, C)``, ``slice_idx (S, C, L)``, optional
+    ``tiles`` (the tiled copy of ``li`` that the kernel reads) ->
     ``(scores (S, C, 128), tc (S, C) int32)``."""
     s, c = valid.shape
     args, tc = _fields(li, *flat_main(li, scene_tr, cand_lines, cand_mask,
                                       rast, valid, slice_idx),
                        budget=(PATCH_H - 12) / 2.0, two_sided=True)
-    out = window_v2(li, *args, two_sided=True)
+    out = window_v2(li, *args, two_sided=True, tiles=tiles)
     return out.reshape(s, c, K_LANES), tc.to(torch.int32).reshape(s, c)
 
 
 def window_scores_v2_ext(li, cand_lines, cand_mask, vdir, active, slice_idx,
-                         scene_of, scene_tr, t0):
+                         scene_of, scene_tr, t0, tiles=None):
     """One-sided extension pass (JAX ``window_scores_ext``) on ``b``
     candidates of any scenes: lane ``l`` is step ``t0 + l`` along ``vdir``.
     Returns ``(scores (b, 64), cover (b,) int32)``: steps ``t0 .. t0 +
@@ -167,7 +168,8 @@ def window_scores_v2_ext(li, cand_lines, cand_mask, vdir, active, slice_idx,
         li, cand_lines, cand_mask, vdir, active, scene_tr[scene_of], t0,
         global_slice(slice_idx, scene_of, li.shape[1]), slice_idx,
         budget=float(PATCH_H - 12), two_sided=False)
-    return window_v2(li, *args, two_sided=False), cover.to(torch.int32)
+    return (window_v2(li, *args, two_sided=False, tiles=tiles),
+            cover.to(torch.int32))
 
 
 def window_v2_plain(li, ep, org, sid, wt, order, geo, t0, x_major, *,
@@ -204,7 +206,7 @@ def window_v2_plain(li, ep, org, sid, wt, order, geo, t0, x_major, *,
 
 
 def window_v2(li, ep, org, sid, wt, order, geo, t0, x_major, *,
-              two_sided: bool) -> torch.Tensor:
+              two_sided: bool, tiles=None) -> torch.Tensor:
     """K5: ``(M, 128)`` (two-sided) or ``(M, 64)`` (one-sided) window
     scores.
 
@@ -213,8 +215,10 @@ def window_v2(li, ep, org, sid, wt, order, geo, t0, x_major, *,
     ``[x0a, y0a, x0a, y0a]``; ``sid``: int32 ``(M, L)`` global slice;
     ``wt``: ``(M, L)`` weights; ``order``: int32 ``(M, L)`` summation order;
     ``geo``: ``(M, 4)`` ``[vx, vy, trm, trn]``; ``t0``: ``(M,)`` first step;
-    ``x_major``: int32 ``(M,)``.  CUDA kernel for CUDA tensors, plain
-    version for CPU tensors."""
+    ``x_major``: int32 ``(M,)``; ``tiles``: optional tiled copy of ``li``
+    (:func:`.window.tile_stack`), which the kernel then reads.  CUDA kernel
+    for CUDA tensors, plain version (which reads ``li``) for CPU
+    tensors."""
     _check_canvas(li)
     build.require(li, "li", torch.float32, 4)
     build.require(ep, "ep", torch.float32, 3)
@@ -225,13 +229,15 @@ def window_v2(li, ep, org, sid, wt, order, geo, t0, x_major, *,
     build.require(geo, "geo", torch.float32, 2)
     build.require(t0, "t0", torch.float32, 1)
     build.require(x_major, "x_major", torch.int32, 1)
+    check_tiles(tiles, li)
     m_count, n_lines = wt.shape
     if (ep.shape != (m_count, n_lines, 4) or org.shape != (m_count, n_lines, 4)
             or sid.shape != wt.shape or order.shape != wt.shape
             or geo.shape != (m_count, 4) or t0.shape != (m_count,)
             or x_major.shape != (m_count,)):
         raise ValueError("window_v2: inconsistent candidate shapes")
-    if not build.use_kernel(li, ep, org, sid, wt, order, geo, t0, x_major):
+    if not build.use_kernel(li, ep, org, sid, wt, order, geo, t0, x_major,
+                            *(() if tiles is None else (tiles,))):
         return window_v2_plain(li, ep, org, sid, wt, order, geo, t0, x_major,
                                two_sided=two_sided)
     if ep.data_ptr() % 16 or org.data_ptr() % 16 or geo.data_ptr() % 16:
@@ -241,6 +247,7 @@ def window_v2(li, ep, org, sid, wt, order, geo, t0, x_major, *,
     out = torch.empty((m_count, count), dtype=torch.float32, device=li.device)
     if m_count:
         build.launch("fdcm_window_v2", li.device, li.data_ptr(), li.numel(),
+                     None if tiles is None else tiles.data_ptr(),
                      ep.data_ptr(), org.data_ptr(), sid.data_ptr(),
                      wt.data_ptr(), order.data_ptr(), geo.data_ptr(),
                      t0.data_ptr(), x_major.data_ptr(), out.data_ptr(),

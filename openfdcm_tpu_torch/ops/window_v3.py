@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .window import K_LANES, K_POS, lane_steps
+from .window import K_LANES, K_POS, check_tiles, lane_steps
 from .window_v2 import (TC_MAX, PATCH_H, coverage, flat_main, global_slice,
                         line_order, major_endpoints, pack_endpoints,
                         split_major)
@@ -126,26 +126,26 @@ def _fields(li, cand_lines, cand_mask, v, gate, tr, t0, sid, slice_idx, *,
 
 
 def window_scores_v3(li, scene_tr, cand_lines, cand_mask, rast, valid,
-                     slice_idx):
-    """Two-sided main pass (JAX ``window_scores_v3``): shapes as
-    :func:`.window_v2.window_scores_v2`; returns ``(scores (S, C, 128), tc
-    (S, C) int32)``."""
+                     slice_idx, tiles=None):
+    """Two-sided main pass (JAX ``window_scores_v3``): shapes and ``tiles``
+    as :func:`.window_v2.window_scores_v2`; returns ``(scores (S, C, 128),
+    tc (S, C) int32)``."""
     s, c = valid.shape
     args, tc = _fields(li, *flat_main(li, scene_tr, cand_lines, cand_mask,
                                       rast, valid, slice_idx), two_sided=True)
-    out = window_v3(li, *args, two_sided=True)
+    out = window_v3(li, *args, two_sided=True, tiles=tiles)
     return out.reshape(s, c, K_LANES), tc.reshape(s, c)
 
 
 def window_scores_v3_ext(li, cand_lines, cand_mask, vdir, active, slice_idx,
-                         scene_of, scene_tr, t0):
+                         scene_of, scene_tr, t0, tiles=None):
     """One-sided extension pass (JAX ``window_scores_ext_v3``): ``(scores
     (b, 64), cover (b,) int32)``, lane ``l`` is step ``t0 + l``."""
     args, cover = _fields(
         li, cand_lines, cand_mask, vdir, active, scene_tr[scene_of], t0,
         global_slice(slice_idx, scene_of, li.shape[1]), slice_idx,
         two_sided=False)
-    return window_v3(li, *args, two_sided=False), cover
+    return window_v3(li, *args, two_sided=False, tiles=tiles), cover
 
 
 def window_v3_plain(li, ep, sid, wt, order, geo, t0, tc, x_major, *,
@@ -200,13 +200,15 @@ def window_v3_plain(li, ep, sid, wt, order, geo, t0, tc, x_major, *,
 
 
 def window_v3(li, ep, sid, wt, order, geo, t0, tc, x_major, *,
-              two_sided: bool) -> torch.Tensor:
+              two_sided: bool, tiles=None) -> torch.Tensor:
     """K6: ``(M, 128)`` (two-sided) or ``(M, 64)`` (one-sided) window
     scores.
 
     Inputs as :func:`.window_v2.window_v2` without the patch origins, plus
     ``tc``: int32 ``(M,)`` covered steps (they set each endpoint's chunk and
-    row band).  CUDA kernel for CUDA tensors, plain version for CPU
+    row band); ``tiles``: optional tiled copy of ``li``
+    (:func:`.window.tile_stack`), which the kernel then reads.  CUDA kernel
+    for CUDA tensors, plain version (which reads ``li``) for CPU
     tensors."""
     _check_canvas(li)
     build.require(li, "li", torch.float32, 4)
@@ -218,13 +220,15 @@ def window_v3(li, ep, sid, wt, order, geo, t0, tc, x_major, *,
     build.require(t0, "t0", torch.float32, 1)
     build.require(tc, "tc", torch.int32, 1)
     build.require(x_major, "x_major", torch.int32, 1)
+    check_tiles(tiles, li)
     m_count, n_lines = wt.shape
     if (ep.shape != (m_count, n_lines, 4) or sid.shape != wt.shape
             or order.shape != wt.shape or geo.shape != (m_count, 4)
             or t0.shape != (m_count,) or tc.shape != (m_count,)
             or x_major.shape != (m_count,)):
         raise ValueError("window_v3: inconsistent candidate shapes")
-    if not build.use_kernel(li, ep, sid, wt, order, geo, t0, tc, x_major):
+    if not build.use_kernel(li, ep, sid, wt, order, geo, t0, tc, x_major,
+                            *(() if tiles is None else (tiles,))):
         return window_v3_plain(li, ep, sid, wt, order, geo, t0, tc, x_major,
                                two_sided=two_sided)
     if ep.data_ptr() % 16 or geo.data_ptr() % 16:
@@ -234,6 +238,7 @@ def window_v3(li, ep, sid, wt, order, geo, t0, tc, x_major, *,
     out = torch.empty((m_count, count), dtype=torch.float32, device=li.device)
     if m_count:
         build.launch("fdcm_window_v3", li.device, li.data_ptr(), li.numel(),
+                     None if tiles is None else tiles.data_ptr(),
                      ep.data_ptr(), sid.data_ptr(), wt.data_ptr(),
                      order.data_ptr(), geo.data_ptr(), t0.data_ptr(),
                      tc.data_ptr(), x_major.data_ptr(), out.data_ptr(),

@@ -220,14 +220,15 @@ def test_tile_stack_kernel_bit_equal(shape):
           window.window_scores_plain(*cpu, count=64, two_sided=False))
 
 
-@pytest.mark.parametrize("major", ["x", "y"])
-@pytest.mark.parametrize("two_sided", [True, False])
-@pytest.mark.parametrize("version", [2, 3])
-def test_window_v2_v3_kernel_bit_equal(version, two_sided, major):
-    """K5/K6 on the inputs their entries build (CPU), against the plain
-    version: every lane, lines near and beyond the canvas edges."""
-    rng = np.random.default_rng(5)
-    s, c, l, d, q = 2, 37, 6, 4, 256
+def v2v3_case(version, two_sided, major, *, seed=5, s=2, c=37, l=6, d=4,
+              q=256, edges=False):
+    """K5 (``version`` 2) or K6 (3) inputs as their entries build them, on
+    the CPU: ``(li, args)`` with ``args`` the wrapper's positional inputs
+    after ``li``.  Lines near and beyond the canvas edges, one major.
+    ``edges``: also a candidate with every weight 0 (as a quarantined one),
+    a NaN weight, slice ids below and beyond the stack and, for K5, patch
+    origins beyond the canvas."""
+    rng = np.random.default_rng(seed)
     li = torch.as_tensor(rng.uniform(0, 100, (s, d, q, q)).astype(np.float32))
     center = rng.uniform(-10, q + 10, (s * c, l, 2))
     delta = rng.uniform(-9, 9, (s * c, l, 2))
@@ -245,17 +246,66 @@ def test_window_v2_v3_kernel_bit_equal(version, two_sided, major):
           else torch.as_tensor(rng.integers(1, 50, s * c).astype(np.float32)))
     sid = (slice_idx + scene_of[:, None] * d).to(torch.int32)
     if version == 2:
-        args, tc = window_v2._fields(li, lines, mask, v, gate, tr, t0, sid,
-                                     slice_idx, budget=10.0 if two_sided else 20.0,
-                                     two_sided=two_sided)
-        kernel, plain = window_v2.window_v2, window_v2.window_v2_plain
+        args, _ = window_v2._fields(li, lines, mask, v, gate, tr, t0, sid,
+                                    slice_idx, budget=10.0 if two_sided else 20.0,
+                                    two_sided=two_sided)
     else:
-        args, tc = window_v3._fields(li, lines, mask, v, gate, tr, t0, sid,
-                                     slice_idx, two_sided=two_sided)
-        kernel, plain = window_v3.window_v3, window_v3.window_v3_plain
+        args, _ = window_v3._fields(li, lines, mask, v, gate, tr, t0, sid,
+                                    slice_idx, two_sided=two_sided)
     assert (args[-1] == (1 if major == "x" else 0)).all()
+    if edges:
+        args = list(args)
+        w_i = 3 if version == 2 else 2
+        wt, sid = args[w_i].clone(), args[w_i - 1].clone()
+        gate_ok = gate.nonzero()[:, 0]
+        wt[gate_ok[0]] = 0.0
+        wt[gate_ok[1], 0] = float("nan")
+        sid[gate_ok[2], 0], sid[gate_ok[3], -1] = -1, s * d
+        sid[gate_ok[4], 1] = s * d + 5
+        args[w_i], args[w_i - 1] = wt, sid
+        if version == 2:
+            org = args[1].clone()
+            org[gate_ok[5], 0, 0], org[gate_ok[6], 1, 3] = -7, q - 20
+            org[gate_ok[7], 2, 2] = q
+            args[1] = org
+        args = tuple(args)
+    return li, args
+
+
+@pytest.mark.parametrize("layout", ["tiles", "rows"])
+@pytest.mark.parametrize("major", ["x", "y"])
+@pytest.mark.parametrize("two_sided", [True, False])
+@pytest.mark.parametrize("version", [2, 3])
+def test_window_v2_v3_kernel_bit_equal(version, two_sided, major, layout):
+    """K5/K6 on the inputs their entries build (CPU), against the plain
+    version: every lane, lines near and beyond the canvas edges, on the
+    tiled copy and on the row-major stack."""
+    li, args = v2v3_case(version, two_sided, major)
+    _v2v3_same(version, two_sided, layout, li, args)
+
+
+@pytest.mark.parametrize("layout", ["tiles", "rows"])
+@pytest.mark.parametrize("two_sided", [True, False])
+@pytest.mark.parametrize("version,q", [(2, 260), (2, 384), (3, 384)])
+def test_window_v2_v3_kernel_edges(version, q, two_sided, layout):
+    """K5/K6 on 384 px and (K5) 260 px canvases (a tiled copy with a padded
+    tile column), 40 lines per candidate (two staging rounds), with a
+    weight-0 candidate, a NaN weight, slice ids outside the stack and (K5)
+    patch origins beyond the canvas, both majors."""
+    for major in ("x", "y"):
+        li, args = v2v3_case(version, two_sided, major, seed=8, c=20, l=40,
+                             q=q, edges=True)
+        _v2v3_same(version, two_sided, layout, li, args)
+
+
+def _v2v3_same(version, two_sided, layout, li, args):
+    kernel, plain = ((window_v2.window_v2, window_v2.window_v2_plain)
+                     if version == 2 else
+                     (window_v3.window_v3, window_v3.window_v3_plain))
+    dev = li.cuda()
+    kw = dict(tiles=window.tile_stack(dev)) if layout == "tiles" else {}
     before = kernel.launches
-    _same(kernel(li.cuda(), *(a.cuda() for a in args), two_sided=two_sided),
+    _same(kernel(dev, *(a.cuda() for a in args), two_sided=two_sided, **kw),
           plain(li, *args, two_sided=two_sided))
     assert kernel.launches == before + 1
 
