@@ -23,9 +23,11 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
    67 TFLOP/s, whichever is larger); the main pass of K1, K5 and K6 split
    into its x-major and y-major candidates, each on the tiled copy and on
    the row-major stack; plus CUDA ``/`` and sqrt against numpy on 1M random
-   f32 pairs;
+   f32 pairs, and the penalty's ``pow_f32`` against numpy's f64 power on
+   1M lengths;
 4. small reference: the slice on CUDA against the slice on the CPU on a
-   small input, BatchOptimize, and DefaultOptimize under each generation;
+   small input, BatchOptimize, DefaultOptimize under each generation,
+   DenseOptimize, and the host ranking path — scores equal;
 5. slice: ``match_many(..., top_k=10, device="cuda")`` on a seeded synthetic
    workload with the pose workload's sizes — 4 banks of 105 templates
    (23-33 lines, 10-150 px), 10 scenes per bank (one planted template under
@@ -39,11 +41,38 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
    ``BatchOptimize(10)`` on bank 0 under each generation — launch counts,
    host syncs, stage times, planted hits, and per mode the top-10s of the
    three generations against each other;
-7. profile: one more slice run (phase 5's) under ``torch.profiler`` —
+7. dense: ``DenseOptimize()`` over the whole workload at generation 4,
+   twice — K1 launches per run and no K5/K6, finite and repeatable
+   top-10s, per scene the dense top-1 at most the slice's BatchOptimize
+   top-1 (exact: the same K1 probes, a superset of the steps), wall time
+   and scenes/s;
+8. concentric: ``ConcentricRangeStrategy(4, 10, c, 0, r)`` around the
+   scenes' common center, ``r`` keeping about half of the lines (the share
+   printed), over the whole workload; an annulus covering every line gives
+   the slice's top-10s exactly;
+9. host ranking: bank 0 without ``top_k`` (every valid match, penalized on
+   the host): its sorted head equals the slice's top-10 rows exactly; a
+   DefaultSearch subclass with a user penalty computing the same function
+   gives the same lists; generations 2 and 3 with their K5/K6 launches;
+10. single scene: bank 0's scenes through ``build_featuremap`` -> ``search``
+   -> ``penalize`` -> ``sort_matches`` (K2/K3/K4 launches counted), whose
+   top-10s equal the slice's; ``build_featuremap(pad_to=None)`` on the card
+   bit-equal to the CPU build, its K2/K3/K4 calls bit-equal to their plain
+   versions, its ``search`` at generations 2, 3 and 4; ``evaluate`` on the
+   card equal to the CPU; a save/load round trip bit-equal;
+11. template chunks: bank 0 under a forced small device budget (several
+   template chunks per dispatch) equals the slice's top-10s;
+12. profile: one more slice run (phase 5's) under ``torch.profiler`` —
    device time by kernel, the device's busy share of the run, and K3's
    time per launch beside its CUDA-event time from phase 3; then one
    DefaultOptimize run each under generations 2 and 3, for K5's and K6's
-   device time per run beside K1's and the tile copy's.
+   device time per run beside K1's and the tile copy's; then one dense run
+   and bank 0 through the single-scene path, each with its device busy
+   share and its kernels' launches and device time.
+
+Phase 3 also holds one dense 64-lane K1 call against the plain version,
+and phase 4 adds DenseOptimize and the host ranking path; every CUDA
+score there equals the CPU's.
 """
 from __future__ import annotations
 
@@ -66,9 +95,11 @@ import torch  # noqa: E402
 import openfdcm_tpu_torch as of  # noqa: E402
 from openfdcm_tpu_torch.core import dt as dt_mod  # noqa: E402
 from openfdcm_tpu_torch.core import integral as integral_mod  # noqa: E402
-from openfdcm_tpu_torch.core.geometry import sqrt_f32  # noqa: E402
+from openfdcm_tpu_torch.core.geometry import pow_f32, sqrt_f32  # noqa: E402
 from openfdcm_tpu_torch.matching import featuremap as fm_mod  # noqa: E402
 from openfdcm_tpu_torch.matching import optimize as opt_mod  # noqa: E402
+from openfdcm_tpu_torch.matching import pipeline as pipeline_mod  # noqa: E402
+from openfdcm_tpu_torch.matching.optimize_kernel import window_generation  # noqa: E402
 from openfdcm_tpu_torch.ops import build  # noqa: E402
 from openfdcm_tpu_torch.ops import integral as ops_integral  # noqa: E402
 from openfdcm_tpu_torch.ops import minplus as ops_minplus  # noqa: E402
@@ -450,7 +481,16 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
         of.match_many(scenes[:3], bank, params, searcher, optimizer,
                       penalty=penalty, template_lengths=lengths, top_k=TOP_K,
                       device=device, scene_chunk=3)
+    with generation(4), Recorder({
+            "K1_window_scores": (ops_window, "window_scores")}) as dense_rec:
+        of.match_many(scenes[:3], bank, params, searcher, of.DenseOptimize(),
+                      penalty=penalty, template_lengths=lengths, top_k=TOP_K,
+                      device=device, scene_chunk=3)
     torch.cuda.synchronize()
+    # the dense sweep's first 64-lane window (t0 = 1 for every candidate)
+    dense = [c for c in dense_rec.calls["K1_window_scores"]
+             if c[1]["count"] == ops_window.K_POS and bool((c[0][6] == 1).all())]
+    check(dense, "no dense 64-lane K1 call was recorded")
 
     window_calls = search_rec.calls["K1_window_scores"]
     main_pass = [c for c in window_calls if c[1]["two_sided"]][:1]
@@ -466,7 +506,7 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
                   dict(count=ops_window.K_POS, two_sided=False,
                        tiles=main_kw["tiles"]))]
     cases = dict(build_rec.calls)
-    cases["K1_window_scores"] = main_pass + ext_pass + one_sided
+    cases["K1_window_scores"] = main_pass + ext_pass + one_sided + dense[:1]
     cases["K1_tile_stack"] = search_rec.calls["K1_tile_stack"][:1]
     for version in (2, 3):
         cases[WINDOW_KERNEL[version]] = record_generation(
@@ -595,15 +635,25 @@ def phase_ieee(device):
           f"mismatches {n_div}, sqrt (port) mismatches {n_sqrt}, "
           f"torch.sqrt f32 mismatches {n_sqrt_raw}")
     check(n_div == 0 and n_sqrt == 0, "CUDA divide or sqrt is not IEEE-rounded")
+    # the penalty's power: pow_f32 against numpy's f64 power rounded to f32
+    x = rng.uniform(1, 5000, n).astype(np.float32)
+    want = torch.as_tensor(np.power(x.astype(np.float64), 1.5).astype(np.float32))
+    tx = torch.as_tensor(x, device=device)
+    n_pow = mismatches(pow_f32(tx, 1.5), want)
+    n_pow_raw = mismatches(torch.pow(tx, 1.5), want)
+    print(f"[ieee] {n} lengths in [1, 5000] at tau 1.5: pow_f32 mismatches "
+          f"{n_pow}, torch.pow f32 mismatches {n_pow_raw}")
+    check(n_pow == 0, "pow_f32 differs from the f64 power rounded to f32")
 
 
-def run_slice(banks, params, searcher, optimizer, penalty, device, timer):
+def run_slice(banks, params, searcher, optimizer, penalty, device, timer,
+              top_k=TOP_K):
     results = []
     for templates, scenes, _ in banks:
         bank, lengths = make_bank(templates, device)
         results.append(of.match_many(scenes, bank, params, searcher, optimizer,
                                      penalty=penalty, template_lengths=lengths,
-                                     top_k=TOP_K, device=device, timer=timer))
+                                     top_k=top_k, device=device, timer=timer))
     torch.cuda.synchronize()
     return results
 
@@ -611,15 +661,23 @@ def run_slice(banks, params, searcher, optimizer, penalty, device, timer):
 def phase_small_reference(banks, params, searcher, optimizer, penalty, device):
     """The slice on CUDA against the same slice on the CPU (all plain
     versions) on a small input (8 templates, 2 scenes, a 256² canvas):
-    ``optimizer`` under generation 4, DefaultOptimize under 2, 3 and 4."""
-    for version, opt in ((4, optimizer), (2, of.DefaultOptimize()),
-                         (3, of.DefaultOptimize()), (4, of.DefaultOptimize())):
+    ``optimizer`` under generation 4, DefaultOptimize under 2, 3 and 4,
+    DenseOptimize, and ``optimizer`` on the host ranking path."""
+    for version, opt, top_k in ((4, optimizer, TOP_K),
+                                (2, of.DefaultOptimize(), TOP_K),
+                                (3, of.DefaultOptimize(), TOP_K),
+                                (4, of.DefaultOptimize(), TOP_K),
+                                (4, of.DenseOptimize(), TOP_K),
+                                (4, optimizer, None)):
+        label = f"generation {version}, {type(opt).__name__}" + (
+            "" if top_k else ", host ranking (no top_k)")
         with generation(version):
             small_reference(banks, params, searcher, opt, penalty, device,
-                            f"generation {version}, {type(opt).__name__}")
+                            label, top_k)
 
 
-def small_reference(banks, params, searcher, optimizer, penalty, device, label):
+def small_reference(banks, params, searcher, optimizer, penalty, device, label,
+                    top_k=TOP_K):
     templates, scenes, _ = banks[0]
     small = templates[:8]
     scene_list = [np.concatenate([templates[0] + 150.0, scenes[0][:20] * 0.4]),
@@ -629,20 +687,19 @@ def small_reference(banks, params, searcher, optimizer, penalty, device, label):
     for dev in (device, "cpu"):
         out[dev] = of.match_many(scene_list, small, params, searcher, optimizer,
                                  penalty=penalty, template_lengths=lengths,
-                                 top_k=TOP_K, device=dev)
+                                 top_k=top_k, device=dev)
     n_rows = 0
     for a_list, b_list in zip(out[device], out["cpu"]):
-        check(len(a_list) == len(b_list) > 0, "small input: top-k lengths differ")
+        check(len(a_list) == len(b_list) > 0, "small input: list lengths differ")
         for a, b in zip(a_list, b_list):
             check(a.tmpl_idx == b.tmpl_idx, "small input: template ids differ")
-            # the penalty's powf may differ by an ulp between CUDA and the CPU
-            check(np.isclose(a.score, b.score, rtol=1e-6, atol=0),
-                  f"small input: score {a.score} vs {b.score}")
+            # the penalty's power is pow_f32 on both devices
+            check(a.score == b.score, f"small input: score {a.score} vs {b.score}")
             check(np.allclose(a.transform, b.transform, rtol=1e-6, atol=1e-5),
                   "small input: transforms differ")
             n_rows += 1
-    print(f"[reference] small input, {label}, CUDA vs CPU: {n_rows} top-k rows "
-          f"agree (ids equal, scores rtol 1e-6, transforms atol 1e-5)")
+    print(f"[reference] small input, {label}, CUDA vs CPU: {n_rows} rows "
+          f"agree (ids equal, scores equal, transforms atol 1e-5)")
 
 
 def reset_counts():
@@ -693,7 +750,8 @@ def logged_host_syncs():
         opt_mod.host_sync = real
 
 
-def timed_run(banks, params, searcher, optimizer, penalty, device):
+def timed_run(banks, params, searcher, optimizer, penalty, device,
+              top_k=TOP_K):
     """One run of the path with the counts set to 0 just before it and read
     just after: ``(results, launches, host syncs, stage totals, wall s,
     straggler counts)``."""
@@ -702,7 +760,7 @@ def timed_run(banks, params, searcher, optimizer, penalty, device):
         reset_counts()
         t0 = time.perf_counter()
         results = run_slice(banks, params, searcher, optimizer, penalty,
-                            device, timer)
+                            device, timer, top_k)
         wall = time.perf_counter() - t0
         launches, syncs = read_counts()
     return results, launches, syncs, timer.totals, wall, straggler_counts(values)
@@ -832,6 +890,257 @@ def phase_generations(banks, params, searcher, penalty, device, batch_ref):
     return launches_by_gen
 
 
+def same_lists(got, want, label):
+    """Per bank and scene, equal match lists: ids, scores and transforms."""
+    n = 0
+    for bank_a, bank_b in zip(got, want, strict=True):
+        for a_list, b_list in zip(bank_a, bank_b, strict=True):
+            check(len(a_list) == len(b_list), f"{label}: list lengths differ")
+            for a, b in zip(a_list, b_list):
+                check(a.tmpl_idx == b.tmpl_idx and a.score == b.score
+                      and np.array_equal(a.transform, b.transform),
+                      f"{label}: ({a.tmpl_idx}, {a.score}) vs "
+                      f"({b.tmpl_idx}, {b.score})")
+                n += 1
+    return n
+
+
+def phase_dense(banks, params, searcher, penalty, device, batch_ref):
+    """DenseOptimize over the whole workload at generation 4, twice: K1
+    launches, finite repeatable top-10s, and per scene a top-1 at most the
+    slice's BatchOptimize top-1 (``batch_ref``)."""
+    n_scenes = sum(len(s) for _, s, _ in banks)
+    with generation(4):
+        first, launches, syncs, _, wall, _ = timed_run(
+            banks, params, searcher, of.DenseOptimize(), penalty, device)
+        second, launches2, _, st2, wall2, _ = timed_run(
+            banks, params, searcher, of.DenseOptimize(), penalty, device)
+    check_path_launches(launches, 4, "dense")
+    check(launches["K5_window_v2"] == launches["K6_window_v3"] == 0,
+          "dense: a generation-2/3 window kernel was launched")
+    hits = check_topk(banks, first, second)
+    lower = 0
+    for bank_d, bank_b in zip(first, batch_ref):
+        for d, b in zip(bank_d, bank_b):
+            check(d[0].score <= b[0].score,
+                  f"dense top-1 {d[0].score} above BatchOptimize's {b[0].score}")
+            lower += d[0].score < b[0].score
+    print(f"[dense] K1 launches per run {launches['K1_window_scores']} / "
+          f"{launches2['K1_window_scores']}, tile copies "
+          f"{launches['K1_tile_stack']}, K5/K6 0, host syncs {syncs}; "
+          f"top-{TOP_K} non-empty, finite, repeatable; planted "
+          f"{hits}/{n_scenes}; top-1 <= BatchOptimize(10)'s on "
+          f"{n_scenes}/{n_scenes} scenes ({lower} strictly lower)")
+    print(f"[dense] run 1 {wall:.4f} s, run 2 {wall2:.4f} s "
+          f"({n_scenes / wall2:.3f} scenes/s), stages run 2 (s) {stage_line(st2)}")
+    return launches
+
+
+def phase_concentric(banks, params, penalty, device, batch_ref):
+    """ConcentricRangeStrategy around the scenes' common center, its outer
+    radius the median line-center radius, over the whole workload; then an
+    annulus covering every line against the slice's top-10s."""
+    from openfdcm_tpu_torch.matching.search import filter_in_range
+    all_scenes = [s for _, scenes, _ in banks for s in scenes]
+    mids = np.concatenate([(s[:, :2] + s[:, 2:]) / 2 for s in all_scenes])
+    center = tuple(float(c) for c in mids.mean(axis=0))
+    radius = float(np.median(np.linalg.norm(mids - np.asarray(center), axis=1)))
+    strat = of.ConcentricRangeStrategy(4, 10, center, 0.0, radius)
+    shares = [len(filter_in_range(s, center, 0.0, radius)) / len(s)
+              for s in all_scenes]
+    with generation(4):
+        res, launches, syncs, st, wall, _ = timed_run(
+            banks, params, strat, of.BatchOptimize(10), penalty, device)
+    check_path_launches(launches, 4, "concentric")
+    hits = check_topk(banks, res)
+    print(f"[concentric] center ({center[0]:.2f}, {center[1]:.2f}), radius "
+          f"(0, {radius:.2f}): lines kept per scene {min(shares):.3f}-"
+          f"{max(shares):.3f} (mean {np.mean(shares):.3f}); launches "
+          f"{launches}, host syncs {syncs}, planted {hits}/{len(all_scenes)}, "
+          f"{wall:.4f} s ({len(all_scenes) / wall:.3f} scenes/s)")
+    cover = of.ConcentricRangeStrategy(4, 10, (0.0, 0.0), 0.0, 1e9)
+    with generation(4):
+        every = run_slice(banks, params, cover, of.BatchOptimize(10), penalty,
+                          device, None)
+    n = same_lists(every, batch_ref, "covering annulus vs DefaultSearch")
+    print(f"[concentric] an annulus covering every line: {n} top-{TOP_K} rows "
+          f"equal DefaultSearch(4, 10)'s exactly")
+
+
+def phase_host_ranking(banks, params, searcher, penalty, device, batch_ref):
+    """Bank 0 without ``top_k``: every valid match in emplace order,
+    penalized on the host.  Its sorted head equals the slice's top-10 rows;
+    a DefaultSearch subclass with a user penalty of the same function gives
+    the same lists; generations 2 and 3 with their K5/K6 launches."""
+    bank0 = banks[:1]
+    n_scenes = len(bank0[0][1])
+    opt = of.BatchOptimize(10)
+    with generation(4):
+        full, launches, syncs, st, wall, _ = timed_run(
+            bank0, params, searcher, opt, penalty, device, top_k=None)
+    check_path_launches(launches, 4, "host ranking")
+    heads = [[of.sort_matches(m)[:TOP_K] for m in full[0]]]
+    n_rows = same_lists(heads, batch_ref[:1], "host ranking head vs top-k")
+    n_all = sum(len(m) for m in full[0])
+    print(f"[host] bank 0 without top_k: {n_all} matches over {n_scenes} "
+          f"scenes, sorted heads equal the top-{TOP_K} rows exactly ({n_rows} "
+          f"rows); launches {launches}, host syncs {syncs}, {wall:.4f} s "
+          f"({n_scenes / wall:.3f} scenes/s), stages (s) {stage_line(st)}")
+
+    class Subclass(of.DefaultSearch):
+        pass
+
+    class SamePenalty:
+        def apply(self, score, length):
+            return of.ExponentialPenalty(penalty.tau).apply(score, length)
+    with generation(4):
+        sub = run_slice(bank0, params, Subclass(4, 10), opt, SamePenalty(),
+                        device, None, top_k=None)
+    n = same_lists(sub, full, "subclassed searcher, user penalty")
+    print(f"[host] a DefaultSearch subclass with a user penalty: {n} matches "
+          f"equal")
+    for version in (2, 3):
+        with generation(version):
+            res, launches_v, syncs_v, _, wall_v, _ = timed_run(
+                bank0, params, searcher, opt, penalty, device, top_k=None)
+        check_path_launches(launches_v, version, f"host ranking, generation {version}")
+        check([len(m) for m in res[0]] == [len(m) for m in full[0]],
+              f"host ranking, generation {version}: match counts differ")
+        print(f"[host] generation {version}: {WINDOW_KERNEL[version]} launches "
+              f"{launches_v[WINDOW_KERNEL[version]]}, K1 "
+              f"{launches_v['K1_window_scores']}, host syncs {syncs_v}, "
+              f"{wall_v:.4f} s")
+        compare_generations(f"host ranking heads", {
+            4: heads, version: [[of.sort_matches(m)[:TOP_K] for m in res[0]]]})
+
+
+def hold_plain(name, calls):
+    """Recorded calls of a build kernel against its plain version on the
+    card: the mismatch count."""
+    kernel, plain = KERNELS[name][:2]
+    n_bad = 0
+    for args, kw in calls:
+        n_bad += mismatches(kernel(*fresh(args), **kw), plain(*fresh(args), **kw))
+    return n_bad
+
+
+def phase_single_scene(banks, params, searcher, penalty, device, batch_ref):
+    """Bank 0's scenes one at a time through the reference's entry path;
+    then one scene's ``pad_to=None`` build and its search under each
+    generation, ``evaluate`` and a save/load round trip."""
+    import tempfile
+    templates, scenes, _ = banks[0]
+    bank, lengths = make_bank(templates, device)
+    opt = of.BatchOptimize(10)
+    with generation(4):
+        reset_counts()
+        t0 = time.perf_counter()
+        tops = []
+        for scene in scenes:
+            fm = of.build_featuremap(scene, params, device=device)
+            found = of.search(of.DefaultMatch(), searcher, opt, fm, bank, scene)
+            tops.append(of.sort_matches(of.penalize(penalty, found, lengths))[:TOP_K])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, syncs = read_counts()
+    for name in BUILD_KERNELS:
+        check(launches[name] == len(scenes),
+              f"single scene: {name} launched {launches[name]} times")
+    check_path_launches(launches, 4, "single scene")
+    n = same_lists([tops], batch_ref[:1], "single-scene top-k vs match_many")
+    print(f"[single] bank 0, {len(scenes)} scenes through build_featuremap -> "
+          f"search -> penalize -> sort_matches: top-{TOP_K}s equal match_many's "
+          f"({n} rows); launches {launches}, host syncs {syncs}, {wall:.4f} s "
+          f"({len(scenes) / wall:.3f} scenes/s)")
+
+    scene = scenes[0]
+    with Recorder({"K2_minplus_rows": (dt_mod, "minplus_rows"),
+                   "K3_propagate_orientation": (fm_mod, "propagate_orientation"),
+                   "K4_sweep_stack": (integral_mod, "sweep_stack")}) as rec:
+        fm = of.build_featuremap(scene, params, pad_to=None, device=device)
+    ref = of.build_featuremap(scene, params, pad_to=None, device="cpu")
+    n_bad = mismatches(fm.dt3, ref.dt3)
+    check(n_bad == 0, f"pad_to=None build: {n_bad} cells differ from the CPU")
+    held = {name: hold_plain(name, calls) for name, calls in rec.calls.items()}
+    check(all(v == 0 for v in held.values()),
+          f"pad_to=None build: kernel vs plain mismatches {held}")
+    print(f"[single] pad_to=None build {tuple(fm.dt3.shape)}: bit-equal to the "
+          f"CPU build; K2/K3/K4 calls vs plain on the card, mismatches {held}")
+    found = {}
+    for version in (4, 3, 2):
+        with generation(version):
+            reset_counts()
+            found[version] = of.search(of.DefaultMatch(), searcher, opt, fm,
+                                       bank, scene)
+            launches, _ = read_counts()
+            own = launches[WINDOW_KERNEL[version]] > 0
+            gated = window_generation(fm.dt3[None].shape) != version
+        check(own != gated, f"pad_to=None search, generation {version}: "
+              f"window launches {launches} against the canvas gate")
+        if gated:
+            same_lists([[found[version]]], [[found[4]]],
+                       f"pad_to=None search, generation {version}")
+        elif version != 4:
+            check(len(found[version]) == len(found[4]),
+                  f"pad_to=None search, generation {version}: match count differs")
+            compare_generations("pad_to=None search heads", {
+                v: [[of.sort_matches(of.penalize(penalty, found[v], lengths))[:TOP_K]]]
+                for v in (4, version)})
+        print(f"[single] pad_to=None search, generation {version}: launches "
+              f"K1 {launches['K1_window_scores']}, K5 {launches['K5_window_v2']}, "
+              f"K6 {launches['K6_window_v3']}, {len(found[version])} matches"
+              + (", equal to generation 4's (the canvas gate)" if gated else ""))
+    steps = ((0, 0), (3, -2), (-40, 7))
+    trs = [[np.asarray([dx, dy], np.float32) for dx, dy in steps]] * 8
+    got = of.evaluate(fm, templates[:8], trs)
+    want = of.evaluate(ref, templates[:8], trs)
+    check(got == want, "evaluate on the card differs from the CPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fm.npz")
+        of.save_featuremap(path, fm)
+        back = of.load_featuremap(path, device=device)
+    check(mismatches(back.dt3, fm.dt3) == 0 and back.feature_size == fm.feature_size,
+          "save/load round trip differs")
+    print(f"[single] evaluate on the card equals the CPU ({sum(map(len, got))} "
+          f"scores, line-order sums); save/load round trip bit-equal")
+
+
+def phase_template_chunks(banks, params, searcher, penalty, device, batch_ref):
+    """Bank 0 with a device budget forced so small that a dispatch of five
+    scenes takes 32 templates (fewer scenes take more), against the
+    slice's top-10s."""
+    templates, scenes, _ = banks[0]
+    bank, lengths = make_bank(templates, device)
+    scene_chunk, mt, ms, per = 5, 4, 10, 32
+    canvas = max(-(-max(fm_mod.scene_centered_translation(s, params.padding)[1])
+                   // 128) * 128 for s in scenes)
+    budget = scene_chunk * (
+        pipeline_mod._tile_bytes((params.depth, canvas, canvas))
+        + pipeline_mod._cand_bytes(bank.lmax) * 2 * mt * ms * per)
+    calls = []
+    saved = pipeline_mod._budget, pipeline_mod._search_device_batch_topk_genpairs
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape[0])
+        return saved[1](*args, **kw)
+    pipeline_mod._budget = lambda dev: budget
+    pipeline_mod._search_device_batch_topk_genpairs = counted
+    try:
+        with generation(4):
+            res = of.match_many(scenes, bank, params, searcher,
+                                of.BatchOptimize(10), penalty=penalty,
+                                template_lengths=lengths, top_k=TOP_K,
+                                scene_chunk=scene_chunk, device=device)
+    finally:
+        pipeline_mod._budget, pipeline_mod._search_device_batch_topk_genpairs = saved
+    check(max(calls) < len(bank.host),
+          f"template chunks: dispatches of {calls} templates")
+    n = same_lists([res], batch_ref[:1], "template chunks vs unchunked")
+    print(f"[chunks] bank 0 under a {budget / 1e6:.1f} MB budget: {len(calls)} "
+          f"dispatches of {sorted(set(calls))} templates; {n} top-{TOP_K} rows "
+          f"equal the unchunked run's")
+
+
 def profiled(fn):
     """Run ``fn`` under ``torch.profiler``: ``(rows, wall s)``, rows
     ``(kernel name, launches, device ms)`` by device time."""
@@ -854,7 +1163,9 @@ def phase_profile(banks, params, searcher, optimizer, penalty, device, report,
     name, the device's busy share of the run's wall time, the share of
     device time in the port's kernels, and K3's time per launch beside its
     CUDA-event time in ``report``; then one DefaultOptimize run under
-    window generations 2 and 3 each: their window kernels' device time."""
+    window generations 2 and 3 each: their window kernels' device time;
+    then one DenseOptimize run and bank 0 one scene at a time: device busy
+    and the kernels' device time."""
     rows, wall = profiled(lambda: run_slice(banks, params, searcher, optimizer,
                                             penalty, device, None))
     busy = sum(r[2] for r in rows)
@@ -887,6 +1198,31 @@ def phase_profile(banks, params, searcher, optimizer, penalty, device, report,
               f"{sum(r[2] for r in copy):.3f} ms over {sum(r[1] for r in copy)}, "
               f"device busy {sum(r[2] for r in rows):.3f} ms, wall "
               f"{wall * 1e3:.3f} ms")
+    # this slice's new paths: the dense sweep over the workload, and bank 0
+    # one scene at a time through build_featuremap and search
+    templates, scenes, _ = banks[0]
+    bank, _ = make_bank(templates, device)
+
+    def single():
+        for scene in scenes:
+            of.search(of.DefaultMatch(), searcher, optimizer,
+                      of.build_featuremap(scene, params, device=device), bank,
+                      scene)
+        torch.cuda.synchronize()
+    for label, fn in (
+            ("DenseOptimize, 40 scenes", lambda: run_slice(
+                banks, params, searcher, of.DenseOptimize(), penalty, device,
+                None)),
+            ("single scene, bank 0", single)):
+        rows, wall = profiled(fn)
+        busy = sum(r[2] for r in rows)
+        mine = {n: (sum(r[1] for r in rows if n in r[0]),
+                    sum(r[2] for r in rows if n in r[0]))
+                for n in PROFILE_NAMES if any(n in r[0] for r in rows)}
+        print(f"[profile] {label}: wall {wall * 1e3:.3f} ms (profiled), device "
+              f"busy {busy:.3f} ms ({busy / (wall * 1e3):.3f} of wall); "
+              f"launches and ms by kernel name "
+              f"{ {n: (c, round(ms, 3)) for n, (c, ms) in mine.items()} }")
 
 
 def main(argv=None) -> int:
@@ -908,6 +1244,11 @@ def main(argv=None) -> int:
     launches, batch_ref = phase_slice(banks, *cfg)
     by_gen = phase_generations(banks, params, searcher, penalty, device,
                                batch_ref)
+    phase_dense(banks, params, searcher, penalty, device, batch_ref)
+    phase_concentric(banks, params, penalty, device, batch_ref)
+    phase_host_ranking(banks, params, searcher, penalty, device, batch_ref)
+    phase_single_scene(banks, params, searcher, penalty, device, batch_ref)
+    phase_template_chunks(banks, params, searcher, penalty, device, batch_ref)
     with generation(4):
         phase_profile(banks, *cfg, report)
     # each kernel's count from the run of the path it serves

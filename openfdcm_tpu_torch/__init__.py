@@ -2,27 +2,37 @@
 hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of :mod:`openfdcm_tpu` (the JAX package, which stays the reference).
-This package imports ``torch`` and never ``jax``.  Its slice so far is the
-``match_many`` main path: the DT3 build (kernels K2 min-plus EDT row pass,
-K3 orientation propagation, K4 line-integral sweep), on-device pair
-generation, BatchOptimize on the window-score kernel K1, and a device-side
-penalize + top-k.  Every kernel wrapper runs the CUDA kernel on CUDA
-tensors and its plain PyTorch version on CPU tensors; entry points take an
-explicit ``device``.
+This package imports ``torch`` and never ``jax``.  It carries the matching
+API: the DT3 build (kernels K2 min-plus EDT row pass, K3 orientation
+propagation, K4 line-integral sweep), single-scene and scene-batched;
+DefaultSearch and ConcentricRangeStrategy pair generation; the Default,
+Indulgent, Batch and Dense optimizers on the window-score kernels (K1, and
+K5/K6 under window generations 2/3); penalties; ``match_many`` with a
+device-side top-k or host ranking; and the reference-shaped ``search``,
+``optimize``, ``evaluate`` and ``penalize``.  Every kernel wrapper runs the
+CUDA kernel on CUDA tensors and its plain PyTorch version on CPU tensors;
+entry points take an explicit ``device`` (default ``"cuda"``) or use their
+feature map's device.
 """
 from .core.types import Distance
 from .core.geometry import get_template_lengths
-from .matching.featuremap import Dt3Params
-from .matching.search import DefaultSearch
-from .matching.optimize import (
-    DefaultOptimize, IndulgentOptimize, BatchOptimize, DenseOptimize,
+from .matching.featuremap import (
+    Dt3Params, Dt3Featuremap, build_featuremap, evaluate, minmax_translation,
+    save_featuremap, load_featuremap,
 )
-from .matching.penalty import DefaultPenalty, ExponentialPenalty
+from .matching.search import (
+    DefaultSearch, ConcentricRangeStrategy, establish_search_strategy,
+)
+from .matching.optimize import (
+    DefaultOptimize, IndulgentOptimize, BatchOptimize, DenseOptimize, optimize,
+)
+from .matching.penalty import DefaultPenalty, ExponentialPenalty, penalize
 from .matching.match import (
-    Match, DefaultMatch, sort_matches, TemplateBank, prepare_templates,
+    Match, DefaultMatch, sort_matches, TemplateBank, prepare_templates, search,
 )
 from .matching.pipeline import (
     Dt3FeaturemapBatch, build_featuremap_batch, match_many, match_many_async,
+    search_batch,
 )
 from .profiling import StageTimer
 from . import convert
@@ -30,10 +40,13 @@ from . import convert
 __version__ = "0.1.0"
 
 __all__ = [
-    "Distance", "get_template_lengths", "Dt3Params", "DefaultSearch",
-    "DefaultOptimize", "IndulgentOptimize",
-    "BatchOptimize", "DenseOptimize", "DefaultPenalty", "ExponentialPenalty",
-    "Match", "DefaultMatch", "sort_matches", "TemplateBank",
-    "prepare_templates", "Dt3FeaturemapBatch", "build_featuremap_batch",
-    "match_many", "match_many_async", "StageTimer", "convert",
+    "Distance", "get_template_lengths", "Dt3Params", "Dt3Featuremap",
+    "build_featuremap", "evaluate", "minmax_translation", "save_featuremap",
+    "load_featuremap", "DefaultSearch", "ConcentricRangeStrategy",
+    "establish_search_strategy", "DefaultOptimize", "IndulgentOptimize",
+    "BatchOptimize", "DenseOptimize", "optimize", "DefaultPenalty",
+    "ExponentialPenalty", "penalize", "Match", "DefaultMatch", "sort_matches",
+    "TemplateBank", "prepare_templates", "search", "Dt3FeaturemapBatch",
+    "build_featuremap_batch", "match_many", "match_many_async", "search_batch",
+    "StageTimer", "convert",
 ]

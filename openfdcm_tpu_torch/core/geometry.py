@@ -64,6 +64,20 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+def pow_f32(x: torch.Tensor, tau: float) -> torch.Tensor:
+    """f32 ``x ** float32(tau)`` taken in f64 and rounded to f32, the same
+    on every device: the penalty's power (reference
+    ``exponentialpenalty.cpp:39-45``).
+
+    WHY: f32 ``pow`` is not correctly rounded on the CPU or on CUDA, and
+    each rounds differently (torch's CPU f32 ``pow`` and the JAX package's
+    ``jnp.power`` disagree on 18,364 of 1M lengths in [1, 5000] at tau
+    1.5).  A one-ulp change in a penalized score can swap two nearly tied
+    templates in a top-k, so the host ranking path and the device top-k
+    both take the power here."""
+    return torch.pow(x.double(), float(np.float32(tau))).float()
+
+
 def get_center(lines: torch.Tensor) -> torch.Tensor:
     """Midpoint of each line, ``(..., 2)``.  Reference ``core/math.h:286-288``."""
     return (lines[..., 0:2] + lines[..., 2:4]) * 0.5

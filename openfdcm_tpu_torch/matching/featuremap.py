@@ -5,6 +5,10 @@ slice the exact DT of that slice's scene lines, min-propagated across
 orientations (kernel K3), then line-integrated along each slice's angle
 (kernel K4).  Host-side numpy helpers are copied from the JAX package as
 they are: their f32 op order is part of the numerics contract.
+
+The single-scene API (:class:`Dt3Featuremap`, :func:`build_featuremap`,
+:func:`evaluate`, :func:`save_featuremap` / :func:`load_featuremap`) sits
+on the scene-batched build of :mod:`.pipeline`.
 """
 from __future__ import annotations
 
@@ -16,7 +20,9 @@ import numpy as np
 import torch
 
 from ..core import draw
-from ..core.types import Distance, F32_MAX
+from ..core import geometry as geo
+from ..core.rasterize import to_int_trunc
+from ..core.types import Distance, F32_MAX, resolve_device
 from ..ops.prop import propagate_orientation
 
 
@@ -27,6 +33,84 @@ class Dt3Params:
     dt3_coeff: float = 5.0
     padding: float = 2.2
     distance: Distance = Distance.L2
+
+
+@dataclasses.dataclass
+class Dt3Featuremap:
+    """One scene's built feature map.
+
+    ``dt3``: ``f32[depth, H, W]`` (the physical H/W may exceed the logical
+    ``feature_size``; the logical region is reference-exact); ``angles``:
+    ``f32[depth]`` ascending; ``scene_translation``: the shift applied to
+    the scene (``dt3cpu.h:55-60``); ``feature_size``: logical ``(width,
+    height)``, the reference ``Size``."""
+    dt3: torch.Tensor
+    angles: torch.Tensor
+    scene_translation: torch.Tensor
+    feature_size: tuple
+    params: Dt3Params = dataclasses.field(default_factory=Dt3Params)
+
+    @property
+    def depth(self) -> int:
+        return self.dt3.shape[0]
+
+    def get_feature_size(self):
+        return self.feature_size
+
+    def get_scene_translation(self):
+        return self.scene_translation
+
+
+def save_featuremap(filepath: str, fm: Dt3Featuremap) -> None:
+    """Write a feature map as ``.npz`` with the JAX package's keys, so
+    either package reads the other's files."""
+    np.savez_compressed(
+        filepath,
+        dt3=fm.dt3.cpu().numpy(), angles=fm.angles.cpu().numpy(),
+        scene_translation=fm.scene_translation.cpu().numpy(),
+        feature_size=np.asarray(fm.feature_size, np.int64),
+        params=np.asarray([fm.params.depth, fm.params.dt3_coeff,
+                           fm.params.padding, int(fm.params.distance)],
+                          np.float64))
+
+
+def load_featuremap(filepath: str, device="cuda") -> Dt3Featuremap:
+    """Read a feature map written by :func:`save_featuremap` (of either
+    package) onto ``device``."""
+    device = resolve_device(device)
+    z = np.load(filepath)
+    p = z["params"]
+    as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return Dt3Featuremap(
+        dt3=as_dev(z["dt3"]), angles=as_dev(z["angles"]),
+        scene_translation=as_dev(z["scene_translation"]),
+        feature_size=(int(z["feature_size"][0]), int(z["feature_size"][1])),
+        params=Dt3Params(int(p[0]), float(p[1]), float(p[2]), Distance(int(p[3]))))
+
+
+def empty_featuremap(params: Dt3Params = Dt3Params(), device="cuda") -> Dt3Featuremap:
+    """The reference's empty-scene result (``dt3cpu.h:180-181``)."""
+    device = resolve_device(device)
+    return Dt3Featuremap(
+        dt3=torch.zeros((0, 0, 0), dtype=torch.float32, device=device),
+        angles=torch.zeros((0,), dtype=torch.float32, device=device),
+        scene_translation=torch.zeros((2,), dtype=torch.float32, device=device),
+        feature_size=(0, 0), params=params)
+
+
+def build_featuremap(scene, params: Dt3Params = Dt3Params(),
+                     pad_to: int | None = 128, device="cuda") -> Dt3Featuremap:
+    """Build one scene's DT3 feature map on ``device`` (reference
+    ``dt3cpu.h:174-234``), through the scene-batched build (kernels K2, K3,
+    K4).  ``pad_to``: round the physical canvas up to a multiple of it
+    (None: the logical size); the logical region does not depend on it."""
+    from .pipeline import build_featuremap_batch
+    device = resolve_device(device)
+    arr = geo.as_lines_np(scene)
+    if arr.shape[0] == 0:
+        return empty_featuremap(params, device=device)
+    return build_featuremap_batch([arr], params, pad_to=pad_to or 1,
+                                  device=device).featuremap(0)
 
 
 def scene_centered_translation(scene: np.ndarray, padding: float):
@@ -241,3 +325,84 @@ def minmax_translation_raw(tmpl: torch.Tensor, align_vec: torch.Tensor,
     neg = torch.where(null_vec, inf, torch.where(oob, nan, neg))
     pos = torch.where(null_vec, inf, torch.where(oob, nan, pos))
     return neg, pos
+
+
+def minmax_translation(featuremap: Dt3Featuremap, tmpl: torch.Tensor,
+                       align_vec: torch.Tensor, line_mask=None):
+    """Legal ``(neg, pos)`` step multipliers of template lines ``tmpl (...,
+    L, 4)`` along ``align_vec (..., 2)`` in ``featuremap``'s canvas
+    (reference ``dt3cpu.cpp:30-75``); ``(inf, inf)`` for a null align
+    vector, ``(nan, nan)`` when the template already leaves the image."""
+    w, h = featuremap.feature_size
+    if line_mask is None:
+        line_mask = torch.ones(tmpl.shape[:-1], dtype=torch.bool,
+                               device=tmpl.device)
+    size = torch.tensor([float(w), float(h)], dtype=torch.float32,
+                        device=tmpl.device)
+    return minmax_translation_raw(tmpl, align_vec, size,
+                                  featuremap.scene_translation.to(tmpl.device),
+                                  line_mask)
+
+
+def evaluate_batched(dt3_flat: torch.Tensor, hw: tuple, slice_idx: torch.Tensor,
+                     endpoints: torch.Tensor, line_mask: torch.Tensor,
+                     translations: torch.Tensor) -> torch.Tensor:
+    """FDCM scores of ``translations (..., K, 2)`` (scene translation
+    included) for templates ``endpoints (..., L, 2, 2)`` with orientation
+    slices ``slice_idx (..., L)`` and weights ``line_mask (..., L)``: per
+    translation, the sum over lines, in line order, of ``|dt3[o, y2, x2] -
+    dt3[o, y1, x1]|`` at int-truncated coordinates (reference
+    ``dt3cpu.cpp:126-179``).  ``dt3_flat``: the flattened ``(D, H, W)``
+    stack; probes are clamped to it as ``jnp.take(mode="clip")`` clamps."""
+    h, w = hw
+    lead = endpoints.shape[:-3]
+    l, k = endpoints.shape[-3], translations.shape[-2]
+    b = int(np.prod(lead)) if lead else 1
+    ep = endpoints.reshape(b, l, 2, 2)
+    tr = translations.reshape(b, k, 2)
+    si = slice_idx.reshape(b, l).to(torch.int64)
+    lm = line_mask.reshape(b, l).to(torch.float32)
+    last = dt3_flat.numel() - 1
+    acc = torch.zeros((b, k), dtype=torch.float32, device=dt3_flat.device)
+    for j in range(l):
+        base = (si[:, j] * (h * w))[:, None]
+
+        def probe(e):
+            xi = to_int_trunc(ep[:, j, e, 0:1] + tr[..., 0])
+            yi = to_int_trunc(ep[:, j, e, 1:2] + tr[..., 1])
+            return dt3_flat[(base + yi * w + xi).clamp(0, last)]
+
+        acc = acc + (probe(0) - probe(1)).abs() * lm[:, j:j + 1]
+    return acc.reshape(*lead, k)
+
+
+def evaluate(featuremap: Dt3Featuremap, templates, translations):
+    """Reference-shaped entry (``featuremap.h:159``): a list of templates
+    and a list of per-template translation lists -> a list of per-template
+    score lists, on the feature map's device.  Extra templates or
+    translation lists beyond the shorter input are dropped (zip)."""
+    pairs = list(zip(templates, translations))
+    if not pairs:
+        return []
+    dev = featuremap.dt3.device
+    d, ph, pw = featuremap.dt3.shape
+    tmpls = [geo.as_lines_np(t) for t, _ in pairs]
+    trs_np = [np.asarray(tr, np.float32).reshape(-1, 2) for _, tr in pairs]
+    n = len(tmpls)
+    lmax = max(max(t.shape[0] for t in tmpls), 1)
+    kmax = max(max(t.shape[0] for t in trs_np), 1)
+    lines = np.zeros((n, lmax, 4), np.float32)
+    mask = np.zeros((n, lmax), np.float32)
+    trs = np.zeros((n, kmax, 2), np.float32)
+    for i, (t, tr) in enumerate(zip(tmpls, trs_np)):
+        lines[i, : t.shape[0]] = t
+        mask[i, : t.shape[0]] = 1.0
+        trs[i, : tr.shape[0]] = tr
+    lines_d = torch.as_tensor(lines, device=dev)
+    scores = evaluate_batched(
+        featuremap.dt3.reshape(-1), (ph, pw), classify_lines(d, lines_d),
+        lines_d.reshape(n, lmax, 2, 2), torch.as_tensor(mask, device=dev),
+        torch.as_tensor(trs, device=dev) + featuremap.scene_translation)
+    scores = scores.cpu().numpy()
+    return [[float(x) for x in scores[i, : trs_np[i].shape[0]]]
+            for i in range(n)]

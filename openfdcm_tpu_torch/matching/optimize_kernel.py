@@ -21,6 +21,18 @@ package's own switch (:func:`kernel_version`):
 - 2: kernel K5 (:mod:`openfdcm_tpu_torch.ops.window_v2`), per-candidate
   ``tc`` from the patch's row budget.
 
+A dispatch whose canvas the chosen generation cannot serve (generation
+2: a square canvas of at least 256; generation 3: a square canvas whose
+side is a multiple of 128) runs generation 4's windows instead, chosen by
+shape before any launch as the JAX package's ``kernel_supported`` chooses
+(:func:`window_generation`).
+
+DenseOptimize runs on K1 at every generation (the JAX package has no
+Pallas path for it): the aligned step from a one-lane call, then per
+direction one-sided 64-lane calls from ``t0 = 1 + 64 i`` up to the
+host-known step count, steps past each candidate's limit masked, the
+first minimum kept.  It needs no host sync.
+
 At every generation, every window-kernel call of a dispatch (K1, K5 or
 K6) reads one tiled copy of the stack
 (:func:`~openfdcm_tpu_torch.ops.window.tile_stack`).  Results do not
@@ -61,6 +73,21 @@ def kernel_version() -> int:
                          "integer (3 or 4 select their window generation, "
                          "any other integer generation 2)") from None
     return version if version in (3, 4) else 2
+
+
+def window_generation(li_shape) -> int:
+    """The window generation a dispatch on an ``(S, D, H, W)`` stack runs:
+    :func:`kernel_version`, or 4 where that generation cannot serve the
+    canvas (generation 2 needs a square canvas of at least
+    ``window_v2.PATCH_W``, generation 3 a square canvas whose side is a
+    multiple of 128; JAX ``optimize_kernel.kernel_supported``)."""
+    version = kernel_version()
+    h, w = li_shape[-2:]
+    if version == 2 and not (h == w and w >= wk2.PATCH_W):
+        return 4
+    if version == 3 and not (h == w and w % 128 == 0):
+        return 4
+    return version
 
 
 def _greedy_chain_cov(scores, t_limit, tcov, state, sign):
@@ -139,23 +166,63 @@ def _straggler(state, sign, t_lim, chain_cov, walk, eval_at, ext_eval,
     return tuple(x.index_put((sel,), v) for x, v in zip(state, sub))
 
 
+def _dense(li, ep, sid, wt, tr, safe_rast, t_pos, t_neg, dense_steps,
+           tiles):
+    """DenseOptimize on K1 (JAX ``optimize.optimize_candidates``, mode
+    ``"dense"``): the aligned score, then per direction ``dense_steps / 64``
+    one-sided windows from ``t0 = 1 + 64 i``; steps past the candidate's
+    limit are masked, the first minimum of a window replaces the best only
+    when strictly lower.  A candidate whose limit ends before a window
+    starts gets weight 0 in it: K1 skips its lines and its lanes are
+    masked anyway.  Returns ``(best (M,), step multiplier (M,))``."""
+    m = wt.shape[0]
+    dev = li.device
+    zero = torch.zeros(m, dtype=torch.float32, device=dev)
+    best = wk.window_scores(li, ep, sid, wt, tr, safe_rast, zero, count=1,
+                            two_sided=False, tiles=tiles)[:, 0]
+    mul = zero
+    lanes = torch.arange(wk.K_POS, dtype=torch.float32, device=dev)
+    for sign, t_lim in ((1.0, t_pos), (-1.0, t_neg)):
+        vdir = (sign * safe_rast).contiguous()
+        for i in range(-(-dense_steps // wk.K_POS)):
+            t0 = 1.0 + wk.K_POS * i
+            wt_i = torch.where((t_lim >= t0)[:, None], wt, 0.0).contiguous()
+            scores = wk.window_scores(li, ep, sid, wt_i, tr, vdir,
+                                      torch.full_like(zero, t0),
+                                      count=wk.K_POS, two_sided=False,
+                                      tiles=tiles)
+            steps = t0 + lanes
+            scores = torch.where(steps[None, :] <= t_lim[:, None], scores,
+                                 opt._BIG)
+            wmin = scores.amin(dim=1)
+            warg = opt._first_true(scores == wmin[:, None]).to(torch.float32)
+            better = wmin < best
+            best = torch.where(better, wmin, best)
+            mul = torch.where(better, sign * (t0 + warg), mul)
+    return best, mul
+
+
 def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
                                      cand_lines, cand_mask, cand_align, *,
-                                     mode: str, window: int, cand_ok=None):
-    """Scene-batched optimize on the window kernel of :func:`kernel_version`
-    (main and extension pass) and kernel K1 (lockstep walks).
+                                     mode: str, window: int,
+                                     dense_steps: int = 0, cand_ok=None):
+    """Scene-batched optimize on the window kernel of
+    :func:`window_generation` (main and extension pass) and kernel K1
+    (lockstep walks and the dense sweep).
 
-    ``li``: ``(S, D, Q, Q)`` LI stack; ``angles``: ``(D,)``;
+    ``li``: ``(S, D, H, W)`` LI stack; ``angles``: ``(D,)``;
     ``cand_lines``: ``(S, C, L, 4)``; ``cand_mask``: ``(S, C, L)``;
     ``cand_align``: ``(S, C, 2)``; ``scene_tr`` / ``feature_size``:
-    ``(S, 2)``.  ``mode``: ``"default"``, ``"indulgent"`` or ``"batch"``;
-    ``window``: the greedy walks' steps per lockstep window, or the batch
-    size.  ``cand_ok``: optional ``(S, C)`` candidates the caller masks
-    anyway (kept out of the windows and walks).  Generations 2 and 3 raise
-    ``ValueError`` on a canvas they cannot serve.
+    ``(S, 2)``.  ``mode``: ``"default"``, ``"indulgent"``, ``"batch"`` or
+    ``"dense"``; ``window``: the greedy walks' steps per lockstep window,
+    or the batch size; ``dense_steps``: the dense sweep's steps per
+    direction (:func:`~.optimize.dense_step_count`).  ``cand_ok``: optional
+    ``(S, C)`` candidates the caller masks anyway (kept out of the windows
+    and walks).
     Returns ``(scores (S, C), translations (S, C, 2), valid (S, C))``."""
-    opt.require_walk_mode(mode)
-    version = kernel_version()
+    if mode not in ("default", "indulgent", "batch", "dense"):
+        raise ValueError(f"unknown optimizer mode {mode!r}")
+    version = window_generation(li.shape)
     s, d = li.shape[0], angles.shape[0]
     c, l = cand_mask.shape[1:]
     m = s * c
@@ -188,6 +255,11 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
 
     # every window-kernel call of the dispatch reads the tiled copy
     tiles = wk.tile_stack(li)
+    if mode == "dense":
+        best, mul = _dense(li, ep, sid, wt, tr, safe_rast, t_pos, t_neg,
+                           dense_steps, tiles)
+        translation = (mul[:, None] * safe_rast).reshape(s, c, 2)
+        return best.reshape(s, c), translation, valid
     if version == 4:
         win = wk.window_scores(li, ep, sid, wt, tr, safe_rast, zero,
                                count=wk.K_LANES, two_sided=True, tiles=tiles)

@@ -2,9 +2,21 @@
 
 ``build_featuremap_batch`` builds a whole ``[S, depth, PH, PW]`` DT3 stack
 (kernels K2, K3, K4); ``match_many`` groups scenes by canvas bucket, builds
-each group, and searches it with on-device pair generation, the window
-kernels (K1, or K5/K6 under window generation 2/3) and a device-side
-penalize + top-k.
+each group, and searches it on the window kernels (K1, or K5/K6 under
+window generation 2/3) along one of two paths, routed as the JAX package
+routes them:
+
+- the top-k path: ``top_k`` given, a ``DefaultSearch`` or
+  ``ConcentricRangeStrategy`` and no penalty or a ``DefaultPenalty`` /
+  ``ExponentialPenalty``: pairs generated on the device, then a
+  device-side penalize + top-k (:func:`_genpairs_batch_dispatch`);
+- the host ranking path, for everything else (no ``top_k``, a subclassed
+  searcher, a user penalty): host pair tables (:func:`search_batch`),
+  every valid candidate back in emplace order, penalized on the host.
+
+Both split a dispatch that would exceed the device budget along the
+template (or pair) axis, and merge the parts so the result equals the
+unsplit one.
 """
 from __future__ import annotations
 
@@ -21,11 +33,32 @@ from ..ops.window import tile_shape
 from ..profiling import maybe_stage
 from . import featuremap as fm
 from . import optimize as opt
-from .match import (Match, TemplateBank, _bucket,
+from .match import (Match, TemplateBank, _bucket, _search_device_batch,
+                    _search_device_batch_topk,
                     _search_device_batch_topk_genpairs, prepare_templates)
 from .optimize_kernel import kernel_version
 from .penalty import DefaultPenalty, ExponentialPenalty
-from .search import DefaultSearch, bank_line_table, scene_length_mask
+from .search import (ConcentricRangeStrategy, DefaultSearch, bank_line_table,
+                     bank_pairs, establish_search_strategy, scene_length_mask)
+
+# Device memory a search dispatch may plan for: a quarter of the free
+# memory on a card, this many bytes on the CPU.
+CPU_BUDGET = 1 << 30
+
+
+def _bank_pairs_for_scene(searcher, bank, scene_arr) -> np.ndarray:
+    """``(tmpl_id, tmpl_line, scene_line)`` pairs of the whole bank against
+    one scene, in reference emplace order; vectorized for the built-in
+    strategies and their subclasses, per template otherwise."""
+    if isinstance(searcher, (DefaultSearch, ConcentricRangeStrategy)):
+        return bank_pairs(searcher, bank.lengths_np, bank.counts_np, scene_arr)
+    pairs = []
+    for ti, t in enumerate(bank.host):
+        if t.shape[0] == 0:
+            continue
+        for tl, sl in establish_search_strategy(searcher, t, scene_arr):
+            pairs.append((ti, tl, sl))
+    return np.asarray(pairs, np.int32).reshape(-1, 3)
 
 
 @dataclasses.dataclass
@@ -39,6 +72,13 @@ class Dt3FeaturemapBatch:
 
     def __len__(self):
         return self.dt3.shape[0]
+
+    def featuremap(self, i: int) -> fm.Dt3Featuremap:
+        """One scene's feature map (a view of the batch's stack)."""
+        return fm.Dt3Featuremap(
+            dt3=self.dt3[i], angles=self.angles,
+            scene_translation=self.scene_translations[i],
+            feature_size=self.feature_sizes[i], params=self.params)
 
 
 def build_featuremap_batch(scenes, params: fm.Dt3Params = fm.Dt3Params(),
@@ -92,19 +132,51 @@ def build_featuremap_batch(scenes, params: fm.Dt3Params = fm.Dt3Params(),
         feature_sizes=tuple((w, h) for _, (w, h) in metas), params=params)
 
 
+def _budget(device: torch.device) -> int:
+    """Bytes a search dispatch may plan for on ``device``: a quarter of
+    the card's free memory, :data:`CPU_BUDGET` on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0] // 4
+    return CPU_BUDGET
+
+
+def _cand_bytes(lmax: int) -> int:
+    """Device bytes one candidate takes in a dispatch: about 16 bytes per
+    candidate line for each of ~8 live candidate tensors plus the 128-lane
+    window."""
+    return 8 * 16 * lmax + 4 * 1024
+
+
+def _tile_bytes(stack_shape) -> int:
+    """Bytes of one scene's part of the tiled stack copy, for a scene's
+    ``(D, H, W)`` stack."""
+    return 4 * int(np.prod(tile_shape((1, *stack_shape))))
+
+
 def _scene_chunk(c_per_scene: int, lmax: int, tile_bytes: int,
                  device: torch.device) -> int:
-    """Scenes per search dispatch, sized by device memory: about 16 bytes
-    per candidate line for each of ~8 live candidate tensors plus the
-    128-lane window, and the scene's part of the tiled stack copy that
-    the window kernels read (``tile_bytes``), against a quarter of free
-    device memory (1 GiB on the CPU)."""
-    per_cand = 8 * 16 * lmax + 4 * 1024
-    if device.type == "cuda":
-        budget = torch.cuda.mem_get_info(device)[0] // 4
-    else:
-        budget = 1 << 30
-    return max(1, budget // max(per_cand * c_per_scene + tile_bytes, 1))
+    """Scenes per search dispatch, sized by device memory: each scene's
+    candidates (:func:`_cand_bytes`) and its part of the tiled stack copy
+    that the window kernels read (``tile_bytes``), against
+    :func:`_budget`; at least one."""
+    return max(1, _budget(device)
+               // max(_cand_bytes(lmax) * c_per_scene + tile_bytes, 1))
+
+
+def _cands_per_dispatch(s_chunk: int, lmax: int, tile_bytes: int,
+                        device: torch.device) -> int:
+    """Candidates per scene that a dispatch of ``s_chunk`` scenes can hold
+    within :func:`_budget` beside their tiled stack copy; at least one."""
+    room = _budget(device) // max(s_chunk, 1) - tile_bytes
+    return max(1, room // _cand_bytes(lmax))
+
+
+def _even_chunks(n: int, chunk: int):
+    """``[lo, hi)`` ranges covering ``n`` items in equal chunks of at most
+    ``chunk``."""
+    n_chunks = max(1, -(-n // max(chunk, 1)))
+    size = max(1, -(-n // n_chunks))
+    return [(lo, min(lo + size, n)) for lo in range(0, n, size)]
 
 
 def match_many(scenes, templates, params: fm.Dt3Params, searcher, optimizer,
@@ -114,9 +186,11 @@ def match_many(scenes, templates, params: fm.Dt3Params, searcher, optimizer,
     """End-to-end matching of a list of scenes on ``device``.
 
     Scenes are grouped by canvas bucket; each group is built and searched,
-    and results come back in input order: per scene the ``top_k`` best
-    matches, penalized when a ``penalty`` is given, sorted ascending.
-    ``timer``: optional :class:`~openfdcm_tpu_torch.profiling.StageTimer`."""
+    and results come back in input order, penalized when a ``penalty`` is
+    given: with ``top_k``, per scene the ``top_k`` best matches sorted
+    ascending; without, every valid match in reference emplace order
+    (unsorted).  ``timer``: optional
+    :class:`~openfdcm_tpu_torch.profiling.StageTimer`."""
     return match_many_async(scenes, templates, params, searcher, optimizer,
                             penalty=penalty, template_lengths=template_lengths,
                             pad_to=pad_to, scene_chunk=scene_chunk,
@@ -129,36 +203,35 @@ def match_many_async(scenes, templates, params: fm.Dt3Params, searcher,
                      top_k: int | None = None, device="cuda", timer=None):
     """:func:`match_many` split into dispatch + collection: runs every build
     and search, and returns a zero-argument ``collect()`` that fetches the
-    top-k rows (one device-to-host copy per scene chunk) and returns
-    ``list[list[Match]]``."""
+    results (on the top-k path one device-to-host copy per dispatch) and
+    returns ``list[list[Match]]``."""
     device = resolve_device(device)
-    if top_k is None:
-        raise NotImplementedError(
-            "match_many without top_k (the host ranking path) is not ported "
-            "yet: ROADMAP Queue 1 #5")
-    if type(searcher) is not DefaultSearch:
-        raise NotImplementedError(
-            f"search strategy {type(searcher).__name__} is not ported yet "
-            "(ROADMAP Queue 1 #5)")
-    opt.require_walk_mode(opt.optimizer_mode(optimizer)[0])
+    opt.optimizer_mode(optimizer)      # an unknown optimizer raises here
     kernel_version()                   # a non-integer generation raises here
     bank = templates if isinstance(templates, TemplateBank) \
         else prepare_templates(templates, device=device)
     if bank.device != device:
         raise ValueError(f"template bank on {bank.device}, search on {device}")
 
-    if penalty is None:
-        lengths, tau = np.ones(max(len(bank.host), 1), np.float32), float("nan")
-    elif type(penalty) in (DefaultPenalty, ExponentialPenalty):
+    lengths = None
+    if penalty is not None:
         lengths = np.asarray(template_lengths if template_lengths is not None
                              else geo.get_template_lengths(bank.host), np.float32)
-        tau = 1.0 if type(penalty) is DefaultPenalty else float(penalty.tau)
         if lengths.shape[0] < len(bank.host):   # a device gather would assert
             raise IndexError("In penalize, the size of templatelengths is not "
                              "consistent with match template indices")
-    else:
-        raise NotImplementedError(f"penalty {type(penalty).__name__} is not ported")
-    post = (torch.as_tensor(lengths, device=device), tau, top_k)
+    # the device penalizes and ranks when the penalty has the reference's
+    # power form (or is absent); any other penalty ranks on the host
+    post = None
+    if top_k is not None:
+        if penalty is None:
+            post = (torch.ones(max(len(bank.host), 1), device=device),
+                    float("nan"), top_k)
+        elif type(penalty) in (DefaultPenalty, ExponentialPenalty):
+            tau = 1.0 if type(penalty) is DefaultPenalty else float(penalty.tau)
+            post = (torch.as_tensor(lengths, device=device), tau, top_k)
+    use_devpairs = (post is not None and len(bank.host) > 0
+                    and type(searcher) in (DefaultSearch, ConcentricRangeStrategy))
 
     arrs = [geo.as_lines_np(s) for s in scenes]
     buckets = {}
@@ -168,42 +241,87 @@ def match_many_async(scenes, templates, params: fm.Dt3Params, searcher,
         _, (w, h) = fm.scene_centered_translation(a, params.padding)
         buckets.setdefault(-(-max(w, h) // pad_to) * pad_to, []).append(i)
 
-    mt, ms = searcher.get_max_tmpl_lines(), searcher.get_max_scene_lines()
-    c_per_scene = 2 * len(bank.host) * min(mt, bank.lmax) * ms
     if scene_chunk is None and buckets:
-        phys = max(buckets)
-        tile_bytes = 4 * int(np.prod(tile_shape((1, params.depth, phys, phys))))
-        scene_chunk = _scene_chunk(c_per_scene, bank.lmax, tile_bytes, device)
+        side = max(buckets)
+        scene_chunk = _scene_chunk(_cands_per_scene(searcher, bank), bank.lmax,
+                                   _tile_bytes((params.depth, side, side)),
+                                   device)
 
     out = [[] for _ in scenes]
-    deferred = []
+    deferred, host_results = [], []
     for key in sorted(buckets):
         idxs = buckets[key]
         with maybe_stage(timer, "build_featuremap", device):
             fms = build_featuremap_batch([scenes[i] for i in idxs], params,
                                          pad_to=pad_to, device=device)
-        with maybe_stage(timer, "search_topk_devpairs", device):
-            fin = _genpairs_batch_dispatch(searcher, optimizer, fms, bank,
-                                           [arrs[i] for i in idxs], post,
-                                           scene_chunk)
-        deferred.append((idxs, fin))
+        group = [arrs[i] for i in idxs]
+        if use_devpairs:
+            with maybe_stage(timer, "search_topk_devpairs", device):
+                fin = _genpairs_batch_dispatch(searcher, optimizer, fms, bank,
+                                               group, post, scene_chunk)
+            deferred.append((idxs, fin))
+        else:
+            with maybe_stage(timer, "search_host_pairs", device):
+                host_results.append((idxs, _search_batch_arrays(
+                    searcher, optimizer, fms, bank, group,
+                    scene_chunk=scene_chunk, post=post)))
 
     def collect() -> list:
         for idxs, fin in deferred:
             for i, rows in zip(idxs, fin()):
                 out[i] = [Match(t, s, m.copy()) for (s, t, m) in rows[:top_k]]
+        for idxs, res in host_results:
+            for i, item in zip(idxs, res):
+                out[i] = _host_matches(item, penalty, lengths, top_k)
         return out
 
     return collect
 
 
+def _cands_per_scene(searcher, bank) -> int:
+    """A scene's candidate count under ``searcher`` (an upper bound), for
+    :func:`_scene_chunk`."""
+    try:
+        mt, ms = searcher.get_max_tmpl_lines(), searcher.get_max_scene_lines()
+    except AttributeError:
+        mt, ms = bank.lmax, 1
+    return 2 * int(np.minimum(bank.counts_np, mt).sum()) * ms
+
+
+def _host_matches(item, penalty, lengths, top_k) -> list:
+    """One scene's matches from the host ranking path: its ``("topk",
+    rows)`` from the device top-k, or its full ``(pairs, scores, mats,
+    valid)``, penalized on the host and either kept whole in emplace order
+    (no ``top_k``) or ranked by (score, candidate index)."""
+    if isinstance(item[0], str):               # ("topk", rows)
+        return [Match(t, s, m.copy()) for (s, _, t, m) in item[1][:top_k]]
+    pairs, scores, mats, valid = item
+    tmpl_idx = np.repeat(pairs[:, 0], 2)
+    pscores = scores.astype(np.float32)
+    if penalty is not None:
+        pscores = np.asarray(penalty.apply(pscores, lengths[tmpl_idx]),
+                             np.float32)
+    if top_k is None:
+        sel = np.nonzero(valid)[0]
+    else:
+        masked = np.where(valid, pscores, np.inf)
+        sel = np.lexsort((np.arange(len(masked)), masked))[:top_k]
+        sel = sel[np.isfinite(masked[sel])]
+    return [Match(int(tmpl_idx[j]), float(pscores[j]), mats[j].copy())
+            for j in sel]
+
+
 def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
                              post, scene_chunk: int):
-    """Top-k search with on-device pair generation over scene chunks.
+    """Top-k search with on-device pair generation over scene chunks, and
+    over template chunks where one scene chunk's candidates exceed the
+    device budget.
 
     Returns a ``collect()`` closure that copies the packed top-k rows to the
     host and returns, per scene, the ranked ``(penalized_score, tmpl_idx,
-    mat (2, 3))`` rows of the valid, finite candidates."""
+    mat (2, 3))`` rows of the valid, finite candidates, merged across
+    template chunks by (score, chunk, rank) as the JAX package merges them,
+    which equals the unchunked order."""
     lengths_dev, tau, top_k = post
     s_total = len(featuremaps)
     device = featuremaps.dt3.device
@@ -220,6 +338,9 @@ def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
     top_vals = np.take_along_axis(lens_m, ord_t.astype(np.int64), axis=1) \
         .astype(np.float32)
     rank_ok = np.arange(mt)[None, :] < k_t[:, None]
+    annulus = ((*searcher.center_position, searcher.low_boundary,
+                searcher.high_boundary)
+               if isinstance(searcher, ConcentricRangeStrategy) else None)
     mode, window = opt.optimizer_mode(optimizer)
 
     nb = _bucket(max((a.shape[0] for a in arrs), default=1), 128)
@@ -228,35 +349,197 @@ def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
     svalid_arr = np.zeros((s_total, nb), bool)
     for i, a in enumerate(arrs):
         scene_arr[i, : a.shape[0]] = a
-        slen_arr[i], svalid_arr[i] = scene_length_mask(a, nb)
+        slen_arr[i], svalid_arr[i] = scene_length_mask(a, nb, annulus)
     fs = np.asarray([[float(w), float(h)] for (w, h) in featuremaps.feature_sizes],
                     np.float32)
+    dense_steps = opt.dense_step_count(optimizer, int(fs.max()))
 
     as_dev = lambda a: torch.as_tensor(a, device=device)
-    bank_args = (bank.lines, bank.mask, as_dev(top_vals), as_dev(ord_t),
-                 as_dev(rank_ok))
-    kk = min(top_k, 2 * t_count * mt * ms)
-    n_chunks = -(-s_total // max(scene_chunk, 1))
-    s_chunk = -(-s_total // n_chunks)
+    tables = (as_dev(top_vals), as_dev(ord_t), as_dev(rank_ok))
+    chunks = _even_chunks(s_total, scene_chunk)
+    tile_bytes = _tile_bytes(featuremaps.dt3.shape[1:])
+    t_chunk = max(1, _cands_per_dispatch(max(hi - lo for lo, hi in chunks),
+                                         lmax, tile_bytes, device)
+                  // (2 * mt * ms))
     packed = []
-    for lo in range(0, s_total, s_chunk):
-        sel = slice(lo, min(lo + s_chunk, s_total))
-        sk, mk, tk, vk = _search_device_batch_topk_genpairs(
-            *bank_args, as_dev(scene_arr[sel]), as_dev(slen_arr[sel]),
-            as_dev(svalid_arr[sel]), featuremaps.dt3[sel], featuremaps.angles,
-            featuremaps.scene_translations[sel], as_dev(fs[sel]), lengths_dev,
-            tau, mode=mode, window=max(window, 1), k=kk, ms=ms)
-        # one (S, k, 9) tensor [score, tmpl, valid, mat(6)] per chunk: one copy
-        packed.append(torch.cat([sk[..., None], tk.to(torch.float32)[..., None],
-                                 vk.to(torch.float32)[..., None],
-                                 mk.reshape(*mk.shape[:2], 6)], dim=-1))
+    for lo, hi in chunks:
+        parts = []
+        for t0, t1 in _even_chunks(t_count, t_chunk):
+            kk = min(top_k, 2 * (t1 - t0) * mt * ms)
+            sk, mk, tk, vk = _search_device_batch_topk_genpairs(
+                bank.lines[t0:t1], bank.mask[t0:t1],
+                *(t[t0:t1] for t in tables), as_dev(scene_arr[lo:hi]),
+                as_dev(slen_arr[lo:hi]), as_dev(svalid_arr[lo:hi]),
+                featuremaps.dt3[lo:hi], featuremaps.angles,
+                featuremaps.scene_translations[lo:hi], as_dev(fs[lo:hi]),
+                lengths_dev[t0:t1], tau, mode=mode, window=max(window, 1),
+                dense_steps=dense_steps, k=kk, ms=ms)
+            # one (S, k, 9) tensor [score, tmpl, valid, mat(6)] per part: one copy
+            parts.append((t0, torch.cat(
+                [sk[..., None], tk.to(torch.float32)[..., None],
+                 vk.to(torch.float32)[..., None],
+                 mk.reshape(*mk.shape[:2], 6)], dim=-1)))
+        packed.append((hi - lo, parts))
 
     def collect() -> list:
         out = []
-        for p in packed:
-            arr = p.cpu().numpy()
-            for row in arr:
-                out.append([(float(r[0]), int(r[1]), r[3:9].reshape(2, 3))
-                            for r in row if r[2] > 0.5 and np.isfinite(r[0])])
+        for n_scenes, parts in packed:
+            merged = [[] for _ in range(n_scenes)]
+            for ci, (t0, p) in enumerate(parts):
+                for row, rows in zip(p.cpu().numpy(), merged):
+                    rows.extend((float(r[0]), ci, j, int(r[1]) + t0,
+                                 r[3:9].reshape(2, 3))
+                                for j, r in enumerate(row)
+                                if r[2] > 0.5 and np.isfinite(r[0]))
+            for rows in merged:
+                rows.sort(key=lambda r: r[:3])
+                out.append([(sc, t, m) for (sc, _, _, t, m) in rows])
         return out
     return collect
+
+
+def search_batch(matcher, searcher, optimizer, featuremaps: Dt3FeaturemapBatch,
+                 templates, scenes, scene_chunk: int | None = None) -> list:
+    """Per-scene :func:`~.match.search` over a scene batch, on the feature
+    maps' device: ``list[list[Match]]``, per scene unsorted in reference
+    emplace order (``defaultmatch.cpp:62-70``).  ``templates``: host line
+    arrays, or a :class:`TemplateBank` on that device; ``scene_chunk``:
+    scenes per dispatch (None: sized by device memory)."""
+    del matcher
+    dev = featuremaps.dt3.device
+    bank = templates if isinstance(templates, TemplateBank) \
+        else prepare_templates(templates, device=dev)
+    if bank.device != dev:
+        raise ValueError(f"template bank on {bank.device}, feature maps on {dev}")
+    out = []
+    for pairs, scores, mats, valid in _search_batch_arrays(
+            searcher, optimizer, featuremaps, bank,
+            [geo.as_lines_np(s) for s in scenes], scene_chunk=scene_chunk):
+        out.append([Match(int(pairs[j // 2, 0]), float(scores[j]),
+                          mats[j].copy())
+                    for j in range(2 * pairs.shape[0]) if valid[j]])
+    return out
+
+
+def _search_batch_arrays(searcher, optimizer, featuremaps, bank, arrs,
+                         scene_chunk: int | None = None, post=None) -> list:
+    """Array-level batched search on host pair tables: per scene ``(pairs
+    (P, 3), scores (2P,), mats (2P, 2, 3), valid (2P,))`` in reference
+    emplace order (pair-major, polarity-minor), or with ``post = (lengths,
+    tau, k)`` its device top-k ``("topk", [(score, cand_idx, tmpl_idx,
+    mat), ...])``.  ``arrs``: the scenes' ``(N, 4)`` line arrays."""
+    s_total = len(featuremaps)
+    device = featuremaps.dt3.device
+    tile_bytes = _tile_bytes(featuremaps.dt3.shape[1:])
+    if scene_chunk is None:
+        scene_chunk = _scene_chunk(_cands_per_scene(searcher, bank), bank.lmax,
+                                   tile_bytes, device)
+    out = []
+    for lo, hi in _even_chunks(s_total, scene_chunk):
+        sub = Dt3FeaturemapBatch(
+            dt3=featuremaps.dt3[lo:hi], angles=featuremaps.angles,
+            scene_translations=featuremaps.scene_translations[lo:hi],
+            feature_sizes=featuremaps.feature_sizes[lo:hi],
+            params=featuremaps.params)
+        out.extend(_search_chunk_convert(*_search_chunk_dispatch(
+            searcher, optimizer, sub, bank, arrs[lo:hi], post, tile_bytes)))
+    return out
+
+
+def _search_chunk_dispatch(searcher, optimizer, featuremaps, bank, arrs,
+                           post, tile_bytes):
+    """The device work of one scene chunk on host pair tables: pairs from
+    :func:`_bank_pairs_for_scene`, padded per scene to a common bucket
+    (the padding masked through ``cand_ok``) and split along the pair axis
+    where the chunk's candidates exceed the device budget.  Returns
+    ``(per_scene_pairs, parts, with_topk)``."""
+    s_count = len(featuremaps)
+    device = featuremaps.dt3.device
+    per_scene_pairs = [_bank_pairs_for_scene(searcher, bank, a) for a in arrs]
+    pmax = max((p.shape[0] for p in per_scene_pairs), default=0)
+    if pmax == 0:
+        return per_scene_pairs, [], post is not None
+    nb = _bucket(max(a.shape[0] for a in arrs), 128)
+    scene_arr = np.zeros((s_count, nb, 4), np.float32)
+    for i, a in enumerate(arrs):
+        scene_arr[i, : a.shape[0]] = a
+    mode, window = opt.optimizer_mode(optimizer)
+    fs = np.asarray([[float(w), float(h)] for (w, h) in featuremaps.feature_sizes],
+                    np.float32)
+    dense_steps = opt.dense_step_count(optimizer, int(fs.max()))
+    as_dev = lambda a: torch.as_tensor(a, device=device)
+    common = (as_dev(scene_arr), featuremaps.dt3, featuremaps.angles,
+              featuremaps.scene_translations, as_dev(fs))
+    kw = dict(mode=mode, window=max(window, 1), dense_steps=dense_steps)
+    p_chunk = max(64, _cands_per_dispatch(s_count, bank.lmax, tile_bytes,
+                                          device) // 2 // 64 * 64)
+    parts = []
+    for lo in range(0, pmax, p_chunk):
+        sel = [np.arange(lo, min(lo + p_chunk, p.shape[0])) for p in per_scene_pairs]
+        pb = _bucket(max(len(x) for x in sel), 64)
+        pair_arr = np.zeros((s_count, pb, 3), np.int64)
+        pv = np.zeros((s_count, pb), bool)
+        for i, (p, x) in enumerate(zip(per_scene_pairs, sel)):
+            pair_arr[i, : len(x)] = p[x]
+            pv[i, : len(x)] = True
+        pairs_dev = [as_dev(np.ascontiguousarray(pair_arr[..., j])) for j in range(3)]
+        if post is not None:
+            lengths_dev, tau, k = post
+            parts.append((sel, _search_device_batch_topk(
+                bank.lines, bank.mask, *pairs_dev, *common, lengths_dev, tau,
+                as_dev(pv), k=min(k, 2 * pb), **kw)))
+        else:
+            parts.append((sel, _search_device_batch(
+                bank.lines, bank.mask, *pairs_dev, *common,
+                cand_ok=as_dev(pv).repeat_interleave(2, dim=1), **kw)))
+    return per_scene_pairs, parts, post is not None
+
+
+def _convert_topk(per_scene_pairs, parts):
+    """Merge per-part device top-k results into per-scene ranked lists
+    ``("topk", [(score, global_cand_idx, tmpl_idx, mat), ...])``, ordered
+    by (score, candidate index in emplace order)."""
+    parts = [(sel, tuple(x.cpu().numpy() for x in dev)) for sel, dev in parts]
+    out = []
+    for i, pairs in enumerate(per_scene_pairs):
+        rows = []
+        for sel, (sk, mk, ik, vk) in parts:
+            s = sel[i]
+            for j in range(sk.shape[1]):
+                if not vk[i, j] or not np.isfinite(sk[i, j]):
+                    continue
+                local = int(ik[i, j])
+                pair_pos = local // 2
+                if pair_pos >= len(s):
+                    continue            # padded pair slot
+                gidx = 2 * int(s[pair_pos]) + local % 2
+                rows.append((float(sk[i, j]), gidx,
+                             int(pairs[s[pair_pos], 0]), mk[i, j]))
+        rows.sort(key=lambda r: (r[0], r[1]))
+        out.append(("topk", rows))
+    return out
+
+
+def _search_chunk_convert(per_scene_pairs, parts, with_topk):
+    """Host arrays of one scene chunk from :func:`_search_chunk_dispatch`:
+    the parts scattered back into each scene's emplace order (one copy per
+    device tensor), or :func:`_convert_topk`."""
+    if with_topk:
+        return _convert_topk(per_scene_pairs, parts)
+    parts = [(sel, *(x.cpu().numpy() for x in dev)) for sel, dev in parts]
+    out = []
+    for i, pairs in enumerate(per_scene_pairs):
+        n = 2 * pairs.shape[0]
+        scores = np.zeros((n,), np.float32)
+        mats = np.zeros((n, 2, 3), np.float32)
+        valid = np.zeros((n,), bool)
+        for sel, s_np, m_np, v_np in parts:
+            s = sel[i]
+            # pair j maps to candidates 2j and 2j+1 (polarity-minor order)
+            cidx = np.stack([2 * s, 2 * s + 1], axis=1).reshape(-1)
+            k = 2 * len(s)
+            scores[cidx] = s_np[i, :k]
+            mats[cidx] = m_np[i, :k]
+            valid[cidx] = v_np[i, :k]
+        out.append((pairs, scores, mats, valid))
+    return out

@@ -325,7 +325,7 @@ def test_slice_cuda_matches_cpu():
         assert len(g_list) == len(w_list) > 0
         for g, w in zip(g_list, w_list):
             assert g.tmpl_idx == w.tmpl_idx
-            assert np.isclose(g.score, w.score, rtol=1e-6, atol=0)   # powf ulp
+            assert g.score == w.score          # the penalty's pow is pow_f32
             np.testing.assert_allclose(g.transform, w.transform, rtol=1e-6,
                                        atol=1e-5)
 
@@ -370,7 +370,7 @@ def test_forced_stragglers_cuda_matches_cpu(monkeypatch, tc):
 def test_generations_cuda_match_cpu(monkeypatch, version, mode):
     """The optimizer under window generation 2 or 3, with forced
     stragglers, and ``match_many`` with the greedy walks: CUDA and CPU
-    agree exactly (the slice's penalty ``powf`` to an ulp)."""
+    agree exactly."""
     from openfdcm_tpu_torch.matching import optimize_kernel as tok
     monkeypatch.setenv("OPENFDCM_TPU_KERNEL_VERSION", str(version))
     depth, q = 6, 256
@@ -409,7 +409,104 @@ def test_generations_cuda_match_cpu(monkeypatch, version, mode):
     for g_list, w_list in zip(got, want):
         assert len(g_list) == len(w_list) > 0
         for g, w in zip(g_list, w_list):
-            assert g.tmpl_idx == w.tmpl_idx
-            assert np.isclose(g.score, w.score, rtol=1e-6, atol=0)
+            assert g.tmpl_idx == w.tmpl_idx and g.score == w.score
             np.testing.assert_allclose(g.transform, w.transform, rtol=1e-6,
                                        atol=1e-5)
+
+
+def _stair_case(seed, depth=8, q=256, c=24, l=4):
+    """A stack that decreases along +x (walks run far) and candidates."""
+    rng = np.random.default_rng(seed)
+    base = (np.arange(q, dtype=np.float32)[::-1] * 3.0)[None, None, :]
+    dt3 = np.broadcast_to(base, (depth, q, q)).copy()
+    dt3 += rng.uniform(0, 0.5, (depth, q, q)).astype(np.float32)
+    dt3 = np.cumsum(dt3, axis=2, dtype=np.float32)[None]
+    p1 = rng.uniform(40, 120, (c, l, 2)).astype(np.float32)
+    d = rng.uniform(-12, 12, (c, l, 2)).astype(np.float32)
+    cand = np.concatenate([p1, p1 + d], axis=-1)[None]
+    ang = rng.uniform(-0.8, 0.8, c).astype(np.float32)
+    align = np.stack([np.cos(ang), np.sin(ang)], axis=-1)[None]
+    return (dt3, tfm.make_angles(depth), np.zeros((1, 2), np.float32),
+            np.asarray([[q, q]], np.float32), cand, np.ones((1, c, l), bool),
+            align)
+
+
+@pytest.mark.parametrize("version", [2, 3, 4])
+def test_dense_cuda_matches_cpu(monkeypatch, version):
+    """DenseOptimize on K1 at every generation: one one-lane call, then
+    four 64-lane calls per direction for 256 steps; CUDA equals CPU."""
+    from openfdcm_tpu_torch.matching import optimize_kernel as tok
+    monkeypatch.setenv("OPENFDCM_TPU_KERNEL_VERSION", str(version))
+    inputs = _stair_case(13)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = window.window_scores.launches
+        out[dev] = tok.optimize_candidates_batch_kernel(
+            *(torch.as_tensor(a, device=dev) for a in inputs), mode="dense",
+            window=1, dense_steps=256)
+        out[dev + "_k1"] = window.window_scores.launches - before
+    for g, w in zip(out["cuda"], out["cpu"]):
+        _same(g, w)
+    assert (out["cuda_k1"], out["cpu_k1"]) == (1 + 2 * 4, 0)
+    assert out["cpu"][1].abs().max() > 100
+
+
+def test_single_scene_build_350_cuda_matches_cpu(tmp_path, monkeypatch):
+    """``build_featuremap(pad_to=None)`` on a 350-px canvas (K2, K3 and K4
+    once each) equals the CPU build; ``search`` at generations 2 (K5), 3
+    (the canvas gate sends it to K1) and 4, ``evaluate`` and a save/load
+    round trip equal the CPU's."""
+    rng = np.random.default_rng(6)
+    base = rng.uniform(0, 60, (9, 4)).astype(np.float32)
+    scene = np.concatenate([base + 20, rng.uniform(0, 100, (8, 4))]).astype(np.float32)
+    params = ot.Dt3Params(8, 5.0, 3.61, ot.Distance.L2)
+    kernels = (minplus.minplus_rows, prop.propagate_orientation, integral.sweep_stack)
+    before = [k.launches for k in kernels]
+    fm = ot.build_featuremap(scene, params, pad_to=None, device="cuda")
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
+    ref = ot.build_featuremap(scene, params, pad_to=None, device="cpu")
+    assert fm.dt3.shape[-2:] == (350, 350)
+    _same(fm.dt3, ref.dt3)
+    templates = [base, base[:5] * np.float32(0.8)]
+    main_pass = {2: window_v2.window_v2, 3: window.window_scores,
+                 4: window.window_scores}
+    for version in (2, 3, 4):
+        monkeypatch.setenv("OPENFDCM_TPU_KERNEL_VERSION", str(version))
+        before = {k: k.launches for k in (window.window_scores,
+                                          window_v2.window_v2, window_v3.window_v3)}
+        got = ot.search(ot.DefaultMatch(), ot.DefaultSearch(3, 5),
+                        ot.BatchOptimize(5), fm, templates, scene)
+        ran = {k for k, n in before.items() if k.launches > n}
+        assert main_pass[version] in ran and window_v3.window_v3 not in ran
+        want = ot.search(ot.DefaultMatch(), ot.DefaultSearch(3, 5),
+                         ot.BatchOptimize(5), ref, templates, scene)
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            assert (g.tmpl_idx, g.score) == (w.tmpl_idx, w.score)
+            np.testing.assert_array_equal(g.transform, w.transform)
+    trs = [[np.asarray([1.0, 2.0]), np.asarray([-300.0, 40.0])]]
+    assert ot.evaluate(fm, templates[:1], trs) == ot.evaluate(ref, templates[:1], trs)
+    ot.save_featuremap(str(tmp_path / "fm.npz"), fm)
+    back = ot.load_featuremap(str(tmp_path / "fm.npz"), device="cuda")
+    _same(back.dt3, fm.dt3)
+
+
+def test_host_ranking_and_dense_cuda_match_cpu():
+    """``match_many`` without ``top_k`` (every valid match, penalized on the
+    host) and with DenseOptimize: CUDA equals CPU exactly."""
+    rng = np.random.default_rng(8)
+    base = rng.uniform(0, 60, (7, 4)).astype(np.float32)
+    templates = [base, base[:5] * np.float32(0.8)]
+    scenes = [np.concatenate([base + 20, rng.uniform(0, 100, (8, 4))]).astype(np.float32)]
+    args = (scenes, templates, ot.Dt3Params(8, 5.0, 1.5, ot.Distance.L2),
+            ot.DefaultSearch(3, 5))
+    for optimizer, top_k in ((ot.BatchOptimize(5), None), (ot.DenseOptimize(), 6)):
+        kw = dict(penalty=ot.ExponentialPenalty(1.5), top_k=top_k)
+        got = ot.match_many(*args, optimizer, device="cuda", **kw)
+        want = ot.match_many(*args, optimizer, device="cpu", **kw)
+        for g_list, w_list in zip(got, want):
+            assert len(g_list) == len(w_list) > 0
+            for g, w in zip(g_list, w_list):
+                assert (g.tmpl_idx, g.score) == (w.tmpl_idx, w.score)
+                np.testing.assert_allclose(g.transform, w.transform, rtol=1e-6,
+                                           atol=1e-5)

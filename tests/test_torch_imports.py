@@ -38,6 +38,29 @@ def test_import_does_not_import_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_every_module_and_export_leaves_jax_out():
+    """Every module of the port, every name it exports, and ``chip_smoke``
+    import without JAX or anything of ``openfdcm_tpu``; the exports include
+    the matching API of the JAX package that the port carries."""
+    res = _run("import importlib, pkgutil, sys\n"
+               "import openfdcm_tpu_torch as ot, chip_smoke\n"
+               "mods = [m.name for m in pkgutil.walk_packages(ot.__path__, "
+               "'openfdcm_tpu_torch.')]\n"
+               "for m in mods: importlib.import_module(m)\n"
+               "missing = [n for n in ot.__all__ if not hasattr(ot, n)]\n"
+               "assert not missing, missing\n"
+               "need = {'ConcentricRangeStrategy', 'establish_search_strategy', "
+               "'Dt3Featuremap', 'build_featuremap', 'evaluate', "
+               "'minmax_translation', 'save_featuremap', 'load_featuremap', "
+               "'optimize', 'penalize', 'search', 'search_batch'}\n"
+               "assert need <= set(ot.__all__), need - set(ot.__all__)\n"
+               "bad = [m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'openfdcm_tpu')]\n"
+               "assert not bad, bad\n"
+               "assert len(mods) > 20, mods\n")
+    assert res.returncode == 0, res.stderr
+
+
 def test_chip_smoke_fails_without_gpu():
     res = _run(["chip_smoke.py"])
     assert res.returncode != 0

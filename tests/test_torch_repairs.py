@@ -1,0 +1,200 @@
+"""Four faults of the port against the JAX package, repaired:
+
+* a window generation that cannot serve a dispatch's canvas (generation 2
+  below 256 px, generation 3 off multiples of 128) runs generation 4's
+  windows on K1, as the JAX package's ``kernel_supported`` sends such
+  canvases to its XLA path;
+* the penalty's power is ``pow_f32`` (f64, then rounded), equal on the
+  host and in the device top-k;
+* a dispatch that exceeds the device budget splits along the template axis
+  (top-k path) or the pair axis (host path), with results equal to the
+  unsplit run;
+* ``IndulgentOptimize.get_number_of_passthroughs``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import openfdcm_tpu as of
+import openfdcm_tpu_torch as ot
+from openfdcm_tpu_torch.core.geometry import pow_f32
+from openfdcm_tpu_torch.matching import optimize_kernel as tok
+from openfdcm_tpu_torch.matching import pipeline as tpipe
+from tests.torch_cases import assert_same_matches, three_scene_problem
+
+torch.set_num_threads(1)
+
+TOP_K = 5
+
+
+def _small_canvas_problem():
+    """Scenes small enough for a 128-px canvas at padding 1."""
+    scenes, templates = three_scene_problem()
+    return ([s * np.float32(0.4) for s in scenes],
+            [t * np.float32(0.4) for t in templates])
+
+
+# (generation, problem, params, pad_to, the canvas side it must give)
+GATE_CASES = {
+    "gen2-128": (2, _small_canvas_problem, (4, 5.0, 1.0), 128, 128),
+    "gen3-350": (3, three_scene_problem, (4, 5.0, 2.2), 1, 350),
+}
+
+
+@pytest.fixture(scope="module")
+def gate_jax():
+    out = {}
+    for name, (_, problem, p, pad_to, _) in GATE_CASES.items():
+        scenes, templates = problem()
+        out[name] = of.match_many(
+            scenes, templates, of.Dt3Params(*p, of.Distance.L2),
+            of.DefaultSearch(4, 10), of.DefaultOptimize(),
+            penalty=of.ExponentialPenalty(1.5), top_k=TOP_K, pad_to=pad_to)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(GATE_CASES))
+def test_generation_gate_runs_k1_where_the_canvas_cannot_be_served(
+        name, gate_jax, monkeypatch):
+    version, problem, p, pad_to, side = GATE_CASES[name]
+    scenes, templates = problem()
+    params = ot.Dt3Params(*p, ot.Distance.L2)
+    fms = ot.build_featuremap_batch(scenes[:1], params, pad_to=pad_to,
+                                    device="cpu")
+    assert fms.dt3.shape[-2:] == (side, side)
+    run = lambda: ot.match_many(
+        scenes, templates, params, ot.DefaultSearch(4, 10),
+        ot.DefaultOptimize(), penalty=ot.ExponentialPenalty(1.5),
+        top_k=TOP_K, pad_to=pad_to, device="cpu")
+    monkeypatch.setenv("OPENFDCM_TPU_KERNEL_VERSION", "4")
+    want = run()
+
+    def refuse(*args, **kw):
+        raise AssertionError("a generation-2/3 window kernel was reached")
+    for mod, names in ((tok.wk2, ("window_scores_v2", "window_scores_v2_ext")),
+                       (tok.wk3, ("window_scores_v3", "window_scores_v3_ext"))):
+        for attr in names:
+            monkeypatch.setattr(mod, attr, refuse)
+    main_passes = []
+    k1 = tok.wk.window_scores
+
+    def counted(*args, **kw):
+        main_passes.append(kw["two_sided"])
+        return k1(*args, **kw)
+    monkeypatch.setattr(tok.wk, "window_scores", counted)
+    monkeypatch.setenv("OPENFDCM_TPU_KERNEL_VERSION", str(version))
+    got = run()
+    assert sum(main_passes) >= 1             # K1 main passes ran
+    assert_same_matches(got, want, exact=True)
+    assert_same_matches(got, gate_jax[name])
+
+
+def test_window_generation_by_shape(monkeypatch):
+    for version, shape, want in ((2, (1, 4, 128, 128), 4), (2, (1, 4, 256, 256), 2),
+                                 (2, (1, 4, 300, 300), 2), (2, (1, 4, 384, 256), 4),
+                                 (3, (1, 4, 350, 350), 4), (3, (1, 4, 384, 384), 3),
+                                 (3, (1, 4, 128, 128), 3), (3, (1, 4, 256, 128), 4),
+                                 (4, (1, 4, 37, 37), 4)):
+        monkeypatch.setenv("OPENFDCM_TPU_KERNEL_VERSION", str(version))
+        assert tok.window_generation(shape) == want, (version, shape)
+
+
+def test_pow_f32_is_correctly_rounded():
+    """1M f32 lengths in [1, 5000] at tau 1.5 (and two more exponents):
+    ``pow_f32`` equals numpy's f64 power rounded to f32 everywhere."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(1, 5000, 1_000_000).astype(np.float32)
+    for tau in (1.5, 1.3, 2.0):
+        want = np.power(x.astype(np.float64),
+                        np.float64(np.float32(tau))).astype(np.float32)
+        got = pow_f32(torch.as_tensor(x), tau).numpy()
+        assert int((got != want).sum()) == 0, tau
+
+
+def test_host_penalty_equals_device_penalty():
+    rng = np.random.default_rng(1)
+    lengths = rng.uniform(0, 3000, 4096).astype(np.float32)
+    lengths[:3] = (0.0, 1e-7, 1e-6)
+    scores = rng.uniform(0, 1e5, 4096).astype(np.float32)
+    for penalty, tau in ((ot.ExponentialPenalty(1.5), 1.5),
+                         (ot.ExponentialPenalty(0.7), 0.7),
+                         (ot.DefaultPenalty(), 1.0)):
+        host = penalty.apply(scores, lengths)
+        dev = (torch.as_tensor(scores)
+               / pow_f32(torch.clamp_min(torch.as_tensor(lengths), 1e-6), tau))
+        np.testing.assert_array_equal(host, dev.numpy())
+
+
+def _spy(monkeypatch, module, attr):
+    calls = []
+    fn = getattr(module, attr)
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return fn(*args, **kw)
+    monkeypatch.setattr(module, attr, spy)
+    return calls
+
+
+@pytest.mark.parametrize("path", ["devpairs", "host", "host-topk-user-penalty",
+                                  "host-topk-subclass"])
+def test_chunked_equals_unchunked(path, monkeypatch):
+    """A small device budget splits every dispatch (one scene, and one
+    template or 64 pairs, per dispatch); ids, scores and transforms equal
+    the unsplit run's."""
+    scenes, templates = three_scene_problem()
+    params = ot.Dt3Params(4, 5.0, 2.2, ot.Distance.L2)
+
+    class Subclass(ot.DefaultSearch):
+        pass
+
+    class UserPenalty:
+        def apply(self, score, length):
+            return score / np.maximum(length, np.float32(1.0))
+
+    searcher = Subclass(4, 10) if path == "host-topk-subclass" \
+        else ot.DefaultSearch(4, 10)
+    penalty = UserPenalty() if path == "host-topk-user-penalty" \
+        else ot.ExponentialPenalty(1.5)
+    top_k = None if path == "host" else TOP_K
+    run = lambda: ot.match_many(scenes, templates, params, searcher,
+                                ot.BatchOptimize(10), penalty=penalty,
+                                top_k=top_k, device="cpu")
+    target = ("_search_device_batch_topk_genpairs" if path == "devpairs"
+              else "_search_chunk_dispatch")
+    calls = _spy(monkeypatch, tpipe, target)
+    whole = run()
+    n_whole = len(calls)
+    monkeypatch.setattr(tpipe, "CPU_BUDGET", 1)
+    split = run()
+    if path == "devpairs":
+        assert (n_whole, len(calls) - n_whole) == (1, 3 * len(templates))
+    else:
+        assert (n_whole, len(calls) - n_whole) == (1, 3)
+    assert sum(map(len, whole)) > 0
+    assert_same_matches(split, whole, exact=True)
+
+
+def test_pair_axis_split_into_parts(monkeypatch):
+    """The host path's pair axis splits into 64-pair parts under a small
+    budget, and the parts scatter back into emplace order."""
+    scenes, templates = three_scene_problem()
+    params = ot.Dt3Params(4, 5.0, 2.2, ot.Distance.L2)
+    fms = ot.build_featuremap_batch(scenes, params, device="cpu")
+    bank = ot.prepare_templates(templates, device="cpu")
+    args = (ot.DefaultSearch(4, 10), ot.BatchOptimize(10), fms, bank, scenes)
+    whole = tpipe._search_batch_arrays(*args, scene_chunk=3)
+    calls = _spy(monkeypatch, tpipe, "_search_device_batch")
+    monkeypatch.setattr(tpipe, "CPU_BUDGET", 1)
+    split = tpipe._search_batch_arrays(*args, scene_chunk=3)
+    n_pairs = max(w[0].shape[0] for w in whole)
+    assert n_pairs > 64 and len(calls) == -(-n_pairs // 64)
+    for w, s in zip(whole, split):
+        for a, b in zip(w, s):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_indulgent_number_of_passthroughs():
+    assert ot.IndulgentOptimize(3).get_number_of_passthroughs() == 3
+    assert ot.IndulgentOptimize().get_number_of_passthroughs() == \
+        of.IndulgentOptimize().get_number_of_passthroughs()

@@ -83,8 +83,9 @@ def test_make_candidates_bit_equal():
         jnp.asarray(pair_tl), jnp.asarray(pair_sl), jnp.asarray(scenes[0]),
         lines.shape[1])
     got = tmatch._make_candidates(
-        torch.as_tensor(lines), torch.as_tensor(pair_t), torch.as_tensor(pair_tl),
-        torch.as_tensor(pair_sl)[None], torch.as_tensor(scenes))
+        torch.as_tensor(lines), torch.as_tensor(pair_t)[None],
+        torch.as_tensor(pair_tl)[None], torch.as_tensor(pair_sl)[None],
+        torch.as_tensor(scenes))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g[0].numpy(), np.asarray(w))
 
