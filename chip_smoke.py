@@ -68,7 +68,33 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
    DefaultOptimize run each under generations 2 and 3, for K5's and K6's
    device time per run beside K1's and the tile copy's; then one dense run
    and bank 0 through the single-scene path, each with its device busy
-   share and its kernels' launches and device time.
+   share and its kernels' launches and device time;
+13. files: the whole bank (the 420 templates of the four banks) as
+   ``.tmpl`` files and the 40 scenes as ``.scene`` files (``io.write``,
+   zero-padded names), read back bit-equal one by one and with
+   ``read_batch``;
+14. whole bank: ``match_many`` of the 40 scenes against the 420 templates,
+   twice — repeatable rows, launches, scenes/s and templates x scenes per
+   second; the reference of phases 15-17;
+15. serving: a ``MatcherService`` on the whole bank (``max_batch=16``),
+   warmed up on 2 scenes, the 40 scenes from 4 client threads at once —
+   every answer equal to its phase-14 row; requests/s, latency, dispatches,
+   launches; ``submit`` after ``close()`` raises;
+16. sweep: ``resumable_sweep`` over the ``.tmpl`` paths in chunks of 105,
+   killed on its third chunk (the checkpoint holds 2), resumed with the
+   default matcher (chunks 0-1 do not run again) — equal to phase 14;
+17. CLI: ``python3 -m openfdcm_tpu_torch match`` (scene 0, its defaults)
+   equal to phase 14's row at the CLI's rounding, ``sweep --chunk-size
+   105`` with each scene's best template and score, ``info``;
+18. pose: a bank-0 template on the plane z = 0 in 4 calibrated views with
+   clutter, matched on the card, ``multiview_detections`` on the card: a
+   4-vote detection at the true point, ``six_dof_pose``'s in-plane angle,
+   ``plane_pose``; ``multiview_vote`` on the card against the CPU;
+19. compat: the reference's integration test through
+   ``openfdcm_tpu_torch.compat`` on the card (L2, L1, L2²), its sorted
+   matches equal to the CPU's;
+20. profile: one more phase-15 serving run under ``torch.profiler`` —
+   device busy share, launches, device time by kernel.
 
 Phase 3 also holds one dense 64-lane K1 call against the plain version,
 and phase 4 adds DenseOptimize and the host ranking path; every CUDA
@@ -79,10 +105,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import traceback
 
@@ -1225,6 +1254,495 @@ def phase_profile(banks, params, searcher, optimizer, penalty, device, report,
               f"{ {n: (c, round(ms, 3)) for n, (c, ms) in mine.items()} }")
 
 
+# ---------------------------------------------------------------------------
+# the whole bank through the deployment paths (phases 13-20)
+# ---------------------------------------------------------------------------
+
+KERNEL_SHORT = {"K1_window_scores": "K1", "K1_tile_stack": "copy",
+                "K2_minplus_rows": "K2", "K3_propagate_orientation": "K3",
+                "K4_sweep_stack": "K4", "K5_window_v2": "K5", "K6_window_v3": "K6"}
+
+
+def short(launches):
+    return {KERNEL_SHORT[k]: v for k, v in launches.items() if v}
+
+
+def whole_bank(banks):
+    """The 420 templates of the four banks as one bank, the 40 scenes, and
+    each scene's planted template index in that bank."""
+    templates = [t for tmpls, _, _ in banks for t in tmpls]
+    scenes = [s for _, scns, _ in banks for s in scns]
+    planted = [b * len(tmpls) + j for b, (tmpls, _, pl) in enumerate(banks)
+               for j in pl]
+    return templates, scenes, planted
+
+
+def phase_files(banks, root):
+    """Write the whole bank as ``.tmpl`` files and the scenes as ``.scene``
+    files with the port's ``io.write`` (zero-padded names, so the sorted
+    names are the bank's and the scenes' order), and read them back
+    bit-equal, one by one and with ``read_batch``."""
+    templates, scenes, _ = whole_bank(banks)
+    tdir, sdir = os.path.join(root, "templates"), os.path.join(root, "scenes")
+    os.makedirs(tdir)
+    os.makedirs(sdir)
+    tmpl_paths = [os.path.join(tdir, f"t{i:03d}.tmpl") for i in range(len(templates))]
+    scene_paths = [os.path.join(sdir, f"s{i:02d}.scene") for i in range(len(scenes))]
+    t0 = time.perf_counter()
+    for path, arr in zip(tmpl_paths + scene_paths, templates + scenes):
+        of.write(path, arr)
+    wrote = time.perf_counter() - t0
+    check(sorted(os.listdir(tdir)) == [os.path.basename(p) for p in tmpl_paths]
+          and sorted(os.listdir(sdir)) == [os.path.basename(p) for p in scene_paths],
+          "files: sorted names are not the bank's order")
+    t0 = time.perf_counter()
+    batch = of.io.read_batch(tmpl_paths + scene_paths, num_threads=8)
+    read = time.perf_counter() - t0
+    for path, arr, got in zip(tmpl_paths + scene_paths, templates + scenes, batch):
+        check(of.read(path).tobytes() == arr.tobytes() == got.tobytes(),
+              f"files: {path} does not read back bit-equal")
+    size = sum(os.path.getsize(p) for p in tmpl_paths + scene_paths)
+    print(f"[files] {len(tmpl_paths)} .tmpl and {len(scene_paths)} .scene files "
+          f"({size / 1e6:.3f} MB, zlib) written in {wrote:.4f} s, read back "
+          f"bit-equal one by one and with read_batch (8 threads, {read:.4f} s)")
+    return tdir, sdir, tmpl_paths, scene_paths
+
+
+def phase_whole_bank(banks, params, searcher, optimizer, penalty, device):
+    """``match_many`` of the 40 scenes against the 420-template bank, twice:
+    repeatable results; the reference rows of phases 15-17."""
+    templates, scenes, planted = whole_bank(banks)
+    lengths = of.get_template_lengths(templates)
+    runs = []
+    for _ in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = of.match_many(scenes, templates, params, searcher, optimizer,
+                            penalty=penalty, template_lengths=lengths,
+                            top_k=TOP_K, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append((res, read_counts()[0], wall))
+    (ref, launches, wall1), (again, launches2, wall2) = runs
+    check_path_launches(launches, 4, "whole bank")
+    n = same_lists([again], [ref], "whole bank, run 2 vs run 1")
+    hits = sum(any(m.tmpl_idx == j for m in ms) for ms, j in zip(ref, planted))
+    for ms in ref:
+        check(len(ms) == TOP_K and all(np.isfinite(m.score) for m in ms),
+              "whole bank: a top-k is short or not finite")
+    pairs = len(templates) * len(scenes)
+    print(f"[bank] {len(scenes)} scenes x {len(templates)} templates, top-{TOP_K}: "
+          f"run 2 equals run 1 ({n} rows), planted {hits}/{len(scenes)}; "
+          f"launches {short(launches)} / {short(launches2)}")
+    for name, w in (("run 1", wall1), ("run 2", wall2)):
+        print(f"[bank] {name}: {w:.4f} s, {len(scenes) / w:.3f} scenes/s, "
+              f"{pairs / w:.1f} templates x scenes per s")
+    return ref
+
+
+def serve_once(svc, scenes, n_clients=4):
+    """Submit ``scenes`` from ``n_clients`` threads at once; returns the
+    results in scene order and each request's latency from submit to
+    result, and the wall time from the first submit to the last result."""
+    results, lat = [None] * len(scenes), [None] * len(scenes)
+    start = threading.Barrier(n_clients)
+    t_first = []
+
+    def client(c):
+        start.wait()
+        t_first.append(time.perf_counter())
+        futs = []
+        for i in range(c, len(scenes), n_clients):
+            t_sub = time.perf_counter()
+            fut = svc.submit(scenes[i])
+            fut.add_done_callback(lambda f, i=i, t=t_sub: lat.__setitem__(
+                i, time.perf_counter() - t))
+            futs.append((i, fut))
+        for i, fut in futs:
+            results[i] = fut.result(timeout=600)
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - min(t_first)
+    check(all(r is not None for r in results) and all(x is not None for x in lat),
+          "serving: a request got no answer")
+    return results, lat, wall
+
+
+def phase_serving(banks, params, searcher, optimizer, penalty, device, ref):
+    """A MatcherService on the whole bank: warmup on 2 scenes, the 40 scenes
+    from 4 client threads at once, each answer equal to the whole-bank row;
+    then close, after which submit raises."""
+    templates, scenes, _ = whole_bank(banks)
+    svc = of.MatcherService(templates, params, searcher, optimizer, top_k=TOP_K,
+                            penalty=penalty,
+                            template_lengths=of.get_template_lengths(templates),
+                            max_batch=16, device=device)
+    svc.warmup(scenes[:2])
+    d0 = svc.dispatches
+    reset_counts()
+    results, lat, wall = serve_once(svc, scenes)
+    launches, syncs = read_counts()
+    n_disp = svc.dispatches - d0
+    svc.close()
+    try:
+        svc.submit(scenes[0])
+        closed = False
+    except RuntimeError:
+        closed = True
+    check(closed, "serving: submit after close did not raise")
+    check_path_launches(launches, 4, "serving")
+    n = same_lists([results], [ref], "serving vs whole-bank match_many")
+    print(f"[serving] {len(scenes)} requests from 4 threads, max_batch 16: every "
+          f"answer equals the whole-bank row ({n} rows); {len(scenes) / wall:.3f} "
+          f"requests/s, latency median {np.median(lat) * 1e3:.1f} ms, max "
+          f"{max(lat) * 1e3:.1f} ms, {n_disp} dispatches, launches "
+          f"{short(launches)}, host syncs {syncs}; submit after close raises")
+
+
+def phase_sweep(banks, params, searcher, optimizer, penalty, device, ref,
+                tmpl_paths, root):
+    """``resumable_sweep`` over the 420 ``.tmpl`` paths in chunks of a bank
+    (105), killed on its third chunk, then resumed with the default matcher: the
+    checkpoint holds 2 chunks, chunks 0-1 do not run again, and the result
+    equals the whole-bank rows."""
+    from openfdcm_tpu_torch import sweep as sweep_mod
+    templates, scenes, _ = whole_bank(banks)
+    lengths = of.get_template_lengths(templates)
+    state_dir = os.path.join(root, "sweep_state")
+    kw = dict(top_k=TOP_K, state_dir=state_dir, penalty=penalty,
+              template_lengths=lengths, chunk_size=len(banks[0][0]), device=device)
+
+    class Killed(RuntimeError):
+        pass
+    chunks = []
+
+    def dying(scene_list, chunk_templates, chunk_lengths):
+        chunks.append(len(chunk_templates))
+        if len(chunks) == 3:
+            raise Killed("killed on the third chunk")
+        return of.match_many(scene_list, chunk_templates, params, searcher,
+                             optimizer, penalty=penalty,
+                             template_lengths=chunk_lengths, top_k=TOP_K,
+                             device=device)
+    try:
+        of.resumable_sweep(scenes, tmpl_paths, params, searcher, optimizer,
+                           match_fn=dying, **kw)
+        killed = False
+    except Killed:
+        killed = True
+    state = of.SweepState.load(state_dir)
+    check(killed and state is not None and state.done_chunks == 2,
+          f"sweep: killed {killed}, checkpoint "
+          f"{None if state is None else state.done_chunks} chunks")
+    ran = []
+    real = sweep_mod.match_many
+
+    def counted(scene_list, chunk_templates, *a, **k):
+        ran.append(len(chunk_templates))
+        return real(scene_list, chunk_templates, *a, **k)
+    sweep_mod.match_many = counted
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        res = of.resumable_sweep(scenes, tmpl_paths, params, searcher, optimizer,
+                                 **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, syncs = read_counts()
+    finally:
+        sweep_mod.match_many = real
+    check(ran == [len(banks[0][0])] * 2, f"sweep: the resumed run matched chunks of {ran}")
+    check_path_launches(launches, 4, "sweep")
+    n = same_lists([res], [ref], "resumed sweep vs whole-bank match_many")
+    print(f"[sweep] killed on chunk 3 of 4 (chunks {chunks}), checkpoint 2 chunks; "
+          f"resumed: chunks {ran} only, result equals the whole-bank rows ({n} "
+          f"rows); resumed run {wall:.4f} s (lazy .tmpl reads included), "
+          f"{sum(ran) * len(scenes) / wall:.1f} templates x scenes per s, "
+          f"launches {short(launches)}, host syncs {syncs}")
+
+
+def run_cli(args, timeout=600):
+    """``python3 -m openfdcm_tpu_torch ARGS`` from the repository's root:
+    ``(JSON records, wall s)``."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "openfdcm_tpu_torch", *args],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"CLI {args[0]} failed: {res.stderr[-2000:]}")
+    return [json.loads(line) for line in res.stdout.splitlines()
+            if line.startswith("{")], wall
+
+
+def cli_row(m):
+    return {"template": f"t{m.tmpl_idx:03d}.tmpl", "tmpl_idx": m.tmpl_idx,
+            "score": round(float(m.score), 6),
+            "transform": [[round(float(v), 4) for v in row] for row in m.transform]}
+
+
+def phase_cli(banks, ref, tdir, sdir, scene_paths, root, device):
+    """The CLI in subprocesses with its defaults (the workload's
+    parameters; ``--device`` only off the card): ``match`` on scene 0
+    equals its whole-bank row at the CLI's rounding; ``sweep`` in chunks of
+    a bank (105) gives each scene's best template and score; ``info`` one
+    file's line count.  ``match`` once more in this process, for its
+    launches."""
+    from openfdcm_tpu_torch.__main__ import main as cli_main
+    templates, _, _ = whole_bank(banks)
+    dev_args = [] if device == "cuda" else ["--device", device]
+    match_args = ["match", "--templates", tdir, "--scene", scene_paths[0],
+                  "--top-k", str(TOP_K)] + dev_args
+    got, wall_m = run_cli(match_args)
+    check(got == [cli_row(m) for m in ref[0]],
+          "CLI match: lines differ from the whole-bank row of scene 0")
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        cli_main(match_args)
+    launches, _ = read_counts()
+    check([json.loads(x) for x in buf.getvalue().splitlines()] == got,
+          "CLI match in this process differs from the subprocess")
+    check_path_launches(launches, 4, "CLI match")
+    swept, wall_s = run_cli(["sweep", "--templates", tdir, "--scenes",
+                             os.path.join(sdir, "*.scene"), "--state",
+                             os.path.join(root, "cli_state"), "--chunk-size",
+                             str(len(banks[0][0]))] + dev_args)
+    check(len(swept) == len(ref), f"CLI sweep: {len(swept)} lines")
+    for rec, path, ms in zip(swept, scene_paths, ref):
+        check(rec["scene"] == path and rec["best_template"] == f"t{ms[0].tmpl_idx:03d}.tmpl"
+              and rec["best_score"] == round(float(ms[0].score), 6)
+              and rec["n_matches"] == len(ms),
+              f"CLI sweep: {rec} vs the whole-bank row")
+    info, wall_i = run_cli(["info", os.path.join(tdir, "t000.tmpl")])
+    check(info[0]["lines"] == templates[0].shape[0], f"CLI info: {info}")
+    print(f"[cli] match (scene 0, {len(templates)} templates): {len(got)} lines "
+          f"equal the whole-bank row at the CLI's rounding, {wall_m:.3f} s wall "
+          f"(process start, imports and the kernels' load included); in this "
+          f"process launches {short(launches)}")
+    print(f"[cli] sweep --chunk-size {len(banks[0][0])} ({len(swept)} scenes): best template and "
+          f"score equal the whole-bank rows, {wall_s:.3f} s wall; info "
+          f"{info[0]['lines']} lines, {wall_i:.3f} s wall")
+
+
+def pose_views(template, theta, p_gt, n_views, rng, device, canvas=640,
+               baseline=60.0, depth=100.0):
+    """``template`` on the world plane z = 0 (rotated by ``theta``, moved to
+    ``p_gt``) seen by ``n_views`` cameras ``baseline`` apart along x,
+    centered on the origin, at ``depth``, focal length ``depth`` (scale 1),
+    principal point the canvas center; each view's scene is the projected
+    template plus 120 seeded clutter lines.  Returns ``(cameras, scenes,
+    true centroid (3,))``.
+
+    FDCM places a match to about a pixel (its probes truncate), and a pixel
+    moves a two-view point by ``depth / baseline`` in depth: 25 units for
+    ``tests/test_pose.py``'s 20-unit baseline at depth 500, under 2 here."""
+    from openfdcm_tpu_torch import pose
+    rot = np.array([[np.cos(theta), -np.sin(theta)], [np.sin(theta), np.cos(theta)]])
+    world = (template.reshape(-1, 2) @ rot.T + p_gt).reshape(-1, 4)
+    lines3d = np.zeros((world.shape[0], 6), np.float32)
+    lines3d[:, 0:2], lines3d[:, 3:5] = world[:, 0:2], world[:, 2:4]
+    c = canvas / 2
+    k = np.asarray([[depth, 0, c], [0, depth, c], [0, 0, 1]], np.float32)
+    xs = baseline * (np.arange(n_views) - (n_views - 1) / 2)
+    cams = [pose.Camera(k, np.eye(3, dtype=np.float32),
+                        np.asarray([-x, 0.0, depth], np.float32)) for x in xs]
+    scenes = []
+    for cam in cams:
+        proj = pose.project_lines(lines3d, cam, device=device)
+        clutter = _random_lines(rng, N_CLUTTER, (75, canvas - 75))
+        lines = np.concatenate([proj, clutter]).astype(np.float32)
+        scenes.append(lines[rng.permutation(len(lines))])
+    centroid = (template[:, 0:2] + template[:, 2:4]).sum(axis=0) / (2.0 * len(template))
+    truth = np.append(rot @ centroid + p_gt, 0.0)
+    return cams, scenes, truth
+
+
+def phase_pose(banks, params, searcher, optimizer, penalty, device, seed):
+    """One bank-0 template on the plane z = 0 in 4 views with clutter,
+    matched against bank 0 on the card, then ``multiview_detections``: a
+    4-vote detection of the planted template at the true point, the
+    in-plane angle of ``six_dof_pose``, ``plane_pose`` of view 0; and
+    ``multiview_vote`` on the card against the CPU."""
+    from openfdcm_tpu_torch import pose
+    templates, _, _ = banks[0]
+    rng = np.random.default_rng(seed + 7)
+    j0 = int(rng.integers(len(templates)))
+    theta, p_gt = 0.4, np.asarray([20.0, 10.0])
+    cams, scenes, truth = pose_views(templates[j0], theta, p_gt, 4, rng, device)
+    lengths = of.get_template_lengths(templates)
+    reset_counts()
+    t0 = time.perf_counter()
+    matches = of.match_many(scenes, templates, params, searcher, optimizer,
+                            penalty=penalty, template_lengths=lengths,
+                            top_k=TOP_K, device=device)
+    dets = pose.multiview_detections(matches, templates, cams, k=TOP_K,
+                                     device=device)
+    wall = time.perf_counter() - t0
+    launches, _ = read_counts()
+    check_path_launches(launches, 4, "pose")
+    found = [d for d in dets if d.tmpl_idx == j0 and d.votes == 4]
+    check(found, f"pose: no 4-vote detection of template {j0} "
+          f"({[(d.tmpl_idx, d.votes) for d in dets[:5]]})")
+    best = found[0]
+    err = np.abs(best.point - truth)
+    check(err[0] < 2.5 and err[1] < 2.5 and abs(best.point[2]) < 2.5,
+          f"pose: point {best.point} vs truth {truth}")
+    p6 = pose.six_dof_pose(best, matches, [np.eye(3)] * len(templates), cams)
+    ang = np.arctan2(p6[1, 0], p6[0, 0])
+    d_ang = min(abs(ang - theta), abs(abs(ang - theta) - np.pi))
+    check(d_ang < 0.15, f"pose: in-plane angle {ang} vs {theta}")
+    m0 = [m for m in matches[0] if m.tmpl_idx == j0][0]
+    pp = pose.plane_pose(m0, templates, [np.eye(3)] * len(templates), cams[0],
+                         np.asarray([0, 0, 1, 0], np.float32), device=device)
+    check(np.abs(pp[:2, 3] - truth[:2]).max() < 2.5 and abs(pp[2, 3]) < 1e-3,
+          f"pose: plane_pose point {pp[:3, 3]} vs {truth}")
+    # the vote on the card against the CPU, on the detections' own inputs
+    centers = np.zeros((4, TOP_K, 2), np.float32)
+    tidx = np.full((4, TOP_K), -1, np.int32)
+    valid = np.zeros((4, TOP_K), bool)
+    for vi, ms in enumerate(matches):
+        centers[vi, : len(ms)] = pose.match_centers(ms[:TOP_K], templates)
+        tidx[vi, : len(ms)] = [m.tmpl_idx for m in ms[:TOP_K]]
+        valid[vi, : len(ms)] = True
+    cam_np = [np.stack([getattr(c, n) for c in cams]) for n in ("k", "r", "t")]
+    out = {dev: [x.cpu().numpy() for x in pose.multiview_vote(
+        *(torch.as_tensor(a, device=dev) for a in (centers, tidx, valid, *cam_np)),
+        eps_px=8.0)] for dev in (device, "cpu")}
+    g, w = out[device], out["cpu"]
+    voted = w[1] > 0
+    check(np.array_equal(g[1], w[1]) and np.array_equal(g[3], w[3]),
+          "pose: votes or pair_idx differ between the card and the CPU")
+    pt_err = float(np.abs(g[0][voted] - w[0][voted]).max())
+    check(pt_err <= 1e-3, f"pose: vote points differ by {pt_err}")
+    print(f"[pose] template {j0} of bank 0 in 4 views (theta {theta}, at "
+          f"{truth[:2].tolist()}): {len(dets)} detections, the planted one "
+          f"with 4 votes at {np.round(best.point, 3).tolist()} (error "
+          f"{np.round(err, 3).tolist()}), rms {best.rms:.3f} px; six_dof_pose "
+          f"in-plane angle {ang:.4f} (off {d_ang:.4f}); plane_pose view 0 "
+          f"{np.round(pp[:3, 3], 3).tolist()}; vote card vs CPU: "
+          f"{int(voted.sum())} voted hypotheses, votes and pair_idx equal, "
+          f"points within {pt_err:.2e}; match + detections {wall:.4f} s, "
+          f"launches {short(launches)}")
+
+
+def compat_reference(device):
+    """The reference's integration test (``tests/test_compat.py:42-110``)
+    through ``openfdcm_tpu_torch.compat`` on ``device``, its assertions as
+    checks; returns every sorted match list it made."""
+    import openfdcm_tpu_torch.compat as openfdcm
+
+    def create_lines(n, length):
+        out = np.zeros((4, n))
+        for i, a in enumerate(np.logspace(np.log10(2 * np.pi), np.log10(4 * np.pi), n)):
+            out[:, i] = [0, 0, length * np.cos(a), length * np.sin(a)]
+        return out
+
+    def apply(lines, mat):
+        return (mat[:2, :2] @ lines.reshape(2, -1) + mat[:2, 2:3]).reshape(4, -1)
+
+    close = lambda a, b, atol=1e-5: np.allclose(a, b, atol=atol)
+    pool = openfdcm.ThreadPool(4)
+    searcher, matcher = openfdcm.DefaultSearch(4, 10), openfdcm.DefaultMatch()
+    optimizer = openfdcm.DefaultOptimize(pool)
+    tmpl = create_lines(10, 100)
+    scene_tr = np.array([[-1, 0, 100], [0, -1, 100]])
+    scene = apply(tmpl, scene_tr)
+    lists = []
+    for distance in (openfdcm.distance.L2, openfdcm.distance.L1,
+                     openfdcm.distance.L2_SQUARED):
+        params = openfdcm.Dt3CpuParameters(depth=30, dt3Coeff=5.0, padding=2.2,
+                                           distance=distance)
+        fm = openfdcm.build_cpu_featuremap(scene, params, pool, device=device)
+        got = openfdcm.sort_matches(openfdcm.search(matcher, searcher, optimizer,
+                                                    fm, [tmpl], scene))
+        check(len(got) == 80 and close(scene_tr[:2, :2], got[0].transform[:2, :2])
+              and close(scene_tr[:2, 2], got[0].transform[:2, 2], 1.0 / 0.3),
+              f"compat {distance.name}: the rotated scene's best match")
+        lists.append(got)
+        scene_tr = np.array([[1, 0, 0], [0, 1, 0]])
+        scene = apply(tmpl, scene_tr)
+        fm = openfdcm.build_cpu_featuremap(scene, params, pool, device=device)
+        raw = openfdcm.search(matcher, searcher, optimizer, fm, [tmpl], scene)
+        got = openfdcm.sort_matches(openfdcm.penalize(
+            openfdcm.ExponentialPenalty(1.5), raw, openfdcm.get_template_lengths([tmpl])))
+        check(len(raw) == 80 and close(scene_tr[:2, :2], got[0].transform[:2, :2])
+              and close(scene_tr[:2, 2], got[0].transform[:2, 2], 1.0),
+              f"compat {distance.name}: the identity scene's best match")
+        lists.append(got)
+        empty = openfdcm.build_cpu_featuremap(np.zeros((4, 0)), params, pool,
+                                              device=device)
+        check(not openfdcm.search(matcher, searcher, optimizer, empty, [tmpl],
+                                  np.zeros((4, 0)))
+              and not openfdcm.search(matcher, searcher, optimizer, fm, [], tmpl)
+              and not openfdcm.search(matcher, searcher, optimizer, fm,
+                                      [np.zeros((4, 0))], tmpl),
+              f"compat {distance.name}: an empty search found matches")
+    return lists
+
+
+def phase_compat(device):
+    """The reference integration test through the port's compat layer on
+    the card (L2, L1, L2²) and on the CPU: the assertions hold, and the
+    card's sorted matches equal the CPU's (ids, scores; transforms atol
+    1e-5)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    card = compat_reference(device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, _ = read_counts()
+    check_path_launches(launches, 4, "compat")
+    t0 = time.perf_counter()
+    cpu = compat_reference("cpu")
+    wall_cpu = time.perf_counter() - t0
+    n = 0
+    for a_list, b_list in zip(card, cpu, strict=True):
+        check(len(a_list) == len(b_list), "compat: list lengths differ")
+        for a, b in zip(a_list, b_list):
+            check(a.tmpl_idx == b.tmpl_idx and a.score == b.score
+                  and np.allclose(a.transform, b.transform, rtol=1e-6, atol=1e-5),
+                  f"compat: card ({a.tmpl_idx}, {a.score}) vs CPU "
+                  f"({b.tmpl_idx}, {b.score})")
+            n += 1
+    print(f"[compat] the reference integration test (L2, L1, L2²) through "
+          f"openfdcm_tpu_torch.compat: assertions hold on the card and on the "
+          f"CPU; {n} sorted matches equal (ids, scores; transforms atol 1e-5); "
+          f"card {wall:.3f} s, launches {short(launches)}; CPU {wall_cpu:.3f} s")
+
+
+def phase_profile_serving(banks, params, searcher, optimizer, penalty, device):
+    """One more serving run of phase 15 under ``torch.profiler``: device
+    busy share, launches, device time by kernel."""
+    templates, scenes, _ = whole_bank(banks)
+    svc = of.MatcherService(templates, params, searcher, optimizer, top_k=TOP_K,
+                            penalty=penalty,
+                            template_lengths=of.get_template_lengths(templates),
+                            max_batch=16, device=device)
+    try:
+        svc.warmup(scenes[:2])
+        reset_counts()
+        d0 = svc.dispatches
+        rows, wall = profiled(lambda: serve_once(svc, scenes))
+        launches, _ = read_counts()
+        n_disp = svc.dispatches - d0
+    finally:
+        svc.close()
+    busy = sum(r[2] for r in rows)
+    check(busy > 0, "serving profile: no device time was recorded")
+    mine = {n: (sum(r[1] for r in rows if n in r[0]),
+                round(sum(r[2] for r in rows if n in r[0]), 3))
+            for n in PROFILE_NAMES if any(n in r[0] for r in rows)}
+    print(f"[profile] serving, {len(scenes)} requests from 4 threads, "
+          f"{n_disp} dispatches: wall {wall * 1e3:.3f} ms (profiled), device "
+          f"busy {busy:.3f} ms ({busy / (wall * 1e3):.3f} of wall); launches "
+          f"{short(launches)}; launches and ms by kernel name {mine}")
+    for name, count, ms in rows[:8]:
+        print(f"[profile] serving {ms:10.3f} ms {count:7d}x  {name[:100]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1251,6 +1769,15 @@ def main(argv=None) -> int:
     phase_template_chunks(banks, params, searcher, penalty, device, batch_ref)
     with generation(4):
         phase_profile(banks, *cfg, report)
+        with tempfile.TemporaryDirectory() as root:
+            tdir, sdir, tmpl_paths, scene_paths = phase_files(banks, root)
+            ref = phase_whole_bank(banks, *cfg)
+            phase_serving(banks, *cfg, ref)
+            phase_sweep(banks, *cfg, ref, tmpl_paths, root)
+            phase_cli(banks, ref, tdir, sdir, scene_paths, root, device)
+        phase_pose(banks, *cfg, args.seed)
+        phase_compat(device)
+        phase_profile_serving(banks, *cfg)
     # each kernel's count from the run of the path it serves
     launches["K5_window_v2"] = by_gen[2]["K5_window_v2"]
     launches["K6_window_v3"] = by_gen[3]["K6_window_v3"]

@@ -9,17 +9,25 @@ DefaultSearch and ConcentricRangeStrategy pair generation; the Default,
 Indulgent, Batch and Dense optimizers on the window-score kernels (K1, and
 K5/K6 under window generations 2/3); penalties; ``match_many`` with a
 device-side top-k or host ranking; and the reference-shaped ``search``,
-``optimize``, ``evaluate`` and ``penalize``.  Every kernel wrapper runs the
-CUDA kernel on CUDA tensors and its plain PyTorch version on CPU tensors;
-entry points take an explicit ``device`` (default ``"cuda"``) or use their
-feature map's device.
+``optimize``, ``evaluate`` and ``penalize``.  Around it: line-file I/O,
+the geometry, rasterize and draw helpers, :class:`MatcherService`
+(serving), :func:`resumable_sweep`, the pose stage (:mod:`.pose`),
+:mod:`.viz`, the drop-in :mod:`.compat` (``import openfdcm_tpu_torch.compat
+as openfdcm``) and the CLI (``python -m openfdcm_tpu_torch``).  Every
+kernel wrapper runs the CUDA kernel on CUDA tensors and its plain PyTorch
+version on CPU tensors; entry points take an explicit ``device`` (default
+``"cuda"``) or use their feature map's or bank's device.
 """
 from .core.types import Distance
+from .core import geometry, io, utils
+from .core.errors import OpenFDCMError, PointOutOfBound, ImgProcError
+from .core.io import read, write
 from .core.geometry import get_template_lengths
 from .matching.featuremap import (
     Dt3Params, Dt3Featuremap, build_featuremap, evaluate, minmax_translation,
     save_featuremap, load_featuremap,
 )
+from . import profiling
 from .matching.search import (
     DefaultSearch, ConcentricRangeStrategy, establish_search_strategy,
 )
@@ -35,18 +43,29 @@ from .matching.pipeline import (
     search_batch,
 )
 from .profiling import StageTimer
+from .sweep import resumable_sweep, SweepState
+from .serving import MatcherService
 from . import convert
 
+# The reference spells the enum `openfdcm.distance`.
+distance = Distance
+
 __version__ = "0.1.0"
+# The reference exposes OPENFDCM_VER_{MAJOR,MINOR,PATCH} (core/version.h.in:28-32).
+version_info = tuple(int(p) for p in __version__.split("."))
 
 __all__ = [
-    "Distance", "get_template_lengths", "Dt3Params", "Dt3Featuremap",
-    "build_featuremap", "evaluate", "minmax_translation", "save_featuremap",
-    "load_featuremap", "DefaultSearch", "ConcentricRangeStrategy",
+    "Distance", "distance", "read", "write", "get_template_lengths",
+    "Dt3Params", "Dt3Featuremap", "build_featuremap", "evaluate",
+    "save_featuremap", "load_featuremap", "profiling",
+    "minmax_translation", "DefaultSearch", "ConcentricRangeStrategy",
     "establish_search_strategy", "DefaultOptimize", "IndulgentOptimize",
     "BatchOptimize", "DenseOptimize", "optimize", "DefaultPenalty",
-    "ExponentialPenalty", "penalize", "Match", "DefaultMatch", "sort_matches",
-    "TemplateBank", "prepare_templates", "search", "Dt3FeaturemapBatch",
-    "build_featuremap_batch", "match_many", "match_many_async", "search_batch",
-    "StageTimer", "convert",
+    "ExponentialPenalty", "penalize", "Match", "DefaultMatch", "search",
+    "sort_matches", "TemplateBank", "prepare_templates", "geometry", "io",
+    "Dt3FeaturemapBatch", "build_featuremap_batch", "search_batch", "match_many",
+    "match_many_async",
+    "resumable_sweep", "SweepState", "MatcherService",
+    "OpenFDCMError", "PointOutOfBound", "ImgProcError", "utils",
+    "version_info", "StageTimer", "convert",
 ]

@@ -18,8 +18,40 @@ machinery:
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from .types import resolve_device
+
+PI = math.pi
+HALF_PI = math.pi / 2.0
+
+
+def _f32(x, device) -> torch.Tensor:
+    """``x`` as a float32 tensor: a tensor stays on its device, host data
+    goes to ``device`` (resolved: the card unless the caller asks for the
+    CPU)."""
+    if torch.is_tensor(x):
+        return x.to(torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=resolve_device(device))
+
+
+def as_lines(lines, device="cuda") -> torch.Tensor:
+    """Coerce input to a float32 ``(N, 4)`` line tensor.
+
+    Accepts the reference's ``(4, N)`` layout (``core/math.h:66``) as well
+    as ``(N, 4)``; a ``(4, 4)`` array is read as ``(N, 4)``.  A tensor keeps
+    its device; host data goes to ``device``."""
+    arr = _f32(lines, device)
+    if arr.ndim == 1:
+        arr = arr.reshape(1, 4)
+    if arr.ndim == 2 and arr.shape[0] == 4 and arr.shape[1] != 4:
+        arr = arr.T
+    if arr.shape[-1] != 4:
+        raise ValueError(f"line array must have a trailing axis of 4, got {tuple(arr.shape)}")
+    return arr
 
 
 def as_lines_np(lines) -> np.ndarray:
@@ -78,9 +110,34 @@ def pow_f32(x: torch.Tensor, tau: float) -> torch.Tensor:
     return torch.pow(x.double(), float(np.float32(tau))).float()
 
 
+def p1(lines: torch.Tensor) -> torch.Tensor:
+    """First endpoint, ``(..., 2)``.  Reference ``core/math.h:282``."""
+    return lines[..., 0:2]
+
+
+def p2(lines: torch.Tensor) -> torch.Tensor:
+    """Second endpoint, ``(..., 2)``.  Reference ``core/math.h:283``."""
+    return lines[..., 2:4]
+
+
 def get_center(lines: torch.Tensor) -> torch.Tensor:
     """Midpoint of each line, ``(..., 2)``.  Reference ``core/math.h:286-288``."""
     return (lines[..., 0:2] + lines[..., 2:4]) * 0.5
+
+
+def get_angle(lines: torch.Tensor) -> torch.Tensor:
+    """Angle of each line in ``[-pi/2, pi/2]``, ``(...,)``: ``atan(dy/dx)``,
+    not atan2 (reference ``core/math.h:295-299``), so a vertical line gives
+    ``+-pi/2`` and a point NaN.  ``torch.atan`` may differ from XLA's by one
+    ulp; the matching path never calls it (it classifies in ratio space)."""
+    d = p2(lines) - p1(lines)
+    return torch.atan(d[..., 1] / d[..., 0])
+
+
+def get_length(lines: torch.Tensor) -> torch.Tensor:
+    """Euclidean length of each line, ``(...,)``.  Reference ``core/math.h:306-308``."""
+    d = p2(lines) - p1(lines)
+    return sqrt_f32(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
 
 
 def normalize(lines: torch.Tensor) -> torch.Tensor:
@@ -129,8 +186,81 @@ def align(alignment_line: torch.Tensor, ref_line: torch.Tensor) -> torch.Tensor:
     return torch.stack([mk(cos, sin), mk(-cos, -sin)], dim=-3)
 
 
+def translate(lines: torch.Tensor, translation) -> torch.Tensor:
+    """Translate a line array by a 2-vector.  Reference ``core/math.h:352-354``."""
+    t = _f32(translation, lines.device).to(lines.device)
+    return lines + torch.cat([t, t], dim=-1)
+
+
+def rotate(lines: torch.Tensor, rot, rot_point=None) -> torch.Tensor:
+    """Rotate a line array by a 2x2 matrix, optionally about a point.
+    Reference ``core/math.h:362-378``."""
+    rot = _f32(rot, lines.device).to(lines.device)
+    if rot_point is None:
+        return torch.cat([_apply2x2(rot, p1(lines)), _apply2x2(rot, p2(lines))],
+                         dim=-1)
+    rot_point = _f32(rot_point, lines.device).to(lines.device)
+    t = rot_point - _apply2x2(rot, rot_point)
+    return transform(lines, torch.cat([rot, t[:, None]], dim=-1))
+
+
+def combine(a, b, device="cuda") -> torch.Tensor:
+    """Compose a 2x3 transform with a translation.
+
+    ``combine(mat23, translation)``: the translation applied *before* the
+    transform (reference ``core/math.h:414-419``); ``combine(translation,
+    mat23)``: applied *after* (``core/math.h:427-432``).  Dispatch follows
+    the trailing shape.  Host inputs go to the device of a tensor argument,
+    else to ``device``."""
+    dev = next((v.device for v in (a, b) if torch.is_tensor(v)), device)
+    a, b = _f32(a, dev).to(dev), _f32(b, dev).to(dev)
+    if a.ndim >= 2 and a.shape[-2:] == (2, 3):            # (mat, translation)
+        rot = a[..., :2, :2]
+        t = a[..., :2, 2] + _apply2x2(rot, b)
+    else:                                                 # (translation, mat)
+        rot = b[..., :2, :2]
+        t = b[..., :2, 2] + a
+    return torch.cat([rot, t[..., :, None]], dim=-1)
+
+
+def minmax_point(lines: torch.Tensor):
+    """Min and max corner of the bounding box over all endpoints, each
+    ``(..., 2)``, reduced over the line axis.  Reference ``core/math.h:166-171``."""
+    pts = lines.reshape(*lines.shape[:-1], 2, 2)
+    return pts.amin(dim=(-3, -2)), pts.amax(dim=(-3, -2))
+
+
+def constrain_half_angle(x, device="cuda") -> torch.Tensor:
+    """Wrap angles to ``[-pi/2, pi/2)``.  Reference ``core/math.h:218-223``."""
+    y = torch.fmod(_f32(x, device) + HALF_PI, PI)
+    return y + PI * (y < 0) - HALF_PI
+
+
+def constrain_angle(x, device="cuda") -> torch.Tensor:
+    """Wrap angles to ``[-pi, pi)``.  Reference ``core/math.h:244-249``."""
+    y = torch.fmod(_f32(x, device) + PI, 2 * PI)
+    return y + 2 * PI * (y < 0) - PI
+
+
+def wrap_max(x, mx, device="cuda") -> torch.Tensor:
+    """Reference ``core/math.h:264-267``."""
+    return torch.fmod(mx + torch.fmod(_f32(x, device), mx), mx)
+
+
+def wrap_min_max(x, mn, mx, device="cuda") -> torch.Tensor:
+    """Reference ``core/math.h:269-272``."""
+    return mn + wrap_max(_f32(x, device) - mn, mx - mn)
+
+
 def relatively_equal(a: torch.Tensor, b, rtol=1e-10,
                      atol=1.1920929e-07) -> torch.Tensor:
     """Reference ``core/math.h:183-188`` (default atol = f32 epsilon)."""
     b = torch.as_tensor(b, dtype=torch.float32, device=a.device)
     return (a - b).abs() <= atol + rtol * torch.maximum(a.abs(), b.abs())
+
+
+def all_close(a, b, rtol=0.0, atol=1e-5) -> bool:
+    """Reference ``core/math.h:203-208`` (host: tensors are read back)."""
+    a = np.asarray(a.cpu() if torch.is_tensor(a) else a, np.float32)
+    b = np.asarray(b.cpu() if torch.is_tensor(b) else b, np.float32)
+    return bool(np.all(np.abs(a - b) <= (atol + rtol * np.abs(b))))

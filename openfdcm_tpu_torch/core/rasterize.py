@@ -6,7 +6,10 @@ rounding.  All functions broadcast over leading batch axes.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from . import geometry as geo
 
 _INSIDE, _LEFT, _RIGHT, _BOTTOM, _TOP = 0, 1, 2, 4, 8
 # Float coordinates are clamped to +-2^24 before any float->int conversion:
@@ -25,6 +28,15 @@ def to_int_trunc(x: torch.Tensor, dtype=torch.int64) -> torch.Tensor:
     defined on every device."""
     x = torch.nan_to_num(x, nan=-COORD_CLAMP).clamp(-COORD_CLAMP, COORD_CLAMP)
     return torch.trunc(x).to(dtype)
+
+
+def to_int32_sat(x: torch.Tensor) -> torch.Tensor:
+    """``trunc(x)`` as int32 with XLA's conversion semantics, which the JAX
+    package's ``astype(int32)`` has on the CPU: saturating at the int32
+    range, NaN to 0.  The rasterizer converts with it, so a line with a NaN
+    or far endpoint seeds the pixels the JAX package seeds."""
+    x = torch.nan_to_num(x.double(), nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31 - 1)
+    return torch.trunc(x).to(torch.int32)
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -124,19 +136,64 @@ def clip_lines_masked_dyn(lines: torch.Tensor, box: torch.Tensor):
     return torch.stack([x1, y1, x2, y2], dim=-1), keep
 
 
+def clip_lines_masked(lines: torch.Tensor, box):
+    """:func:`clip_lines_masked_dyn` against a fixed host ``box = (xmin,
+    xmax, ymin, ymax)``."""
+    return clip_lines_masked_dyn(lines, torch.tensor(
+        [float(v) for v in box], dtype=torch.float32, device=lines.device))
+
+
+def clip_lines(lines, box, delete_oob: bool = True, device="cuda") -> np.ndarray:
+    """Host-facing clip with the reference's output conventions
+    (``core/drawing.h:50``, ``drawing.cpp:64-112``): with ``delete_oob``
+    the lines outside ``box = (xmin, xmax, ymin, ymax)`` are removed,
+    otherwise replaced by a singular ``(0, 0)`` point.  Computed on the
+    lines' device (host lines go to ``device``)."""
+    arr = geo.as_lines(lines, device)
+    if arr.shape[0] == 0:
+        return np.zeros((0, 4), np.float32)
+    clipped, keep = clip_lines_masked(arr, box)
+    clipped = clipped.cpu().numpy()
+    keep = keep.cpu().numpy()
+    if delete_oob:
+        return clipped[keep]
+    clipped[~keep] = 0.0
+    return clipped
+
+
+def raster_size(lines: torch.Tensor) -> torch.Tensor:
+    """Rasterized points per line, ``trunc(max(|dx|, |dy|)) + 1`` int32
+    (the per-branch sizes of ``drawing.h:82-97``); NaN and out-of-range
+    extents convert as XLA converts them (:func:`to_int32_sat`)."""
+    d = lines[..., 2:4] - lines[..., 0:2]
+    return to_int32_sat(torch.maximum(d[..., 0].abs(), d[..., 1].abs())) + 1
+
+
+def rasterize_line(line, device="cuda") -> np.ndarray:
+    """Host-facing single-line rasterization: ``(2, K)`` ints, rows ``(x,
+    y)`` (reference layout, ``drawing.h:74``); a degenerate line (``|p2 -
+    p1| <= 1e-5``) is one point."""
+    arr = geo.as_lines(line, device)
+    k = int(raster_size(arr)[0])
+    if bool(((arr[0, 2:4] - arr[0, 0:2]).abs() <= 1e-5).all()):
+        k = 1
+    pts, _ = rasterize_lines_masked(arr, k)
+    return pts[0].cpu().numpy().T
+
+
 def rasterize_lines_masked(lines: torch.Tensor, max_points: int):
     """Rasterize ``(..., N, 4)`` lines onto a static ``(..., N, P, 2)`` int32
     grid with a validity mask ``(..., N, P)``.
 
     Point ``i`` is ``round(p1 + i * (p2 - p1) / (size - 1))`` (Eigen
     ``LinSpaced`` + round, ``drawing.h:97-101``) with the product and add
-    fused as XLA:CPU fuses them (:func:`fma_f32`).  A degenerate line
+    fused as XLA:CPU fuses them (:func:`fma_f32`), sizes and points
+    converted to int32 as XLA converts them (:func:`to_int32_sat`).  A degenerate line
     (``|p2 - p1| <= 1e-5``) gives the single point ``round(p1)``."""
     a = lines[..., 0:2]
     b = lines[..., 2:4]
     d = b - a
-    m = torch.maximum(d[..., 0].abs(), d[..., 1].abs())
-    size = to_int_trunc(m, torch.int32) + 1
+    size = raster_size(lines)
     degenerate = (d.abs() <= 1e-5).all(dim=-1)
     size = torch.where(degenerate, torch.ones_like(size), size)
 
@@ -146,6 +203,6 @@ def rasterize_lines_masked(lines: torch.Tensor, max_points: int):
     pts = fma_f32(d[..., None, :], frac[..., None], a[..., None, :])
     single = torch.where(degenerate[..., None], a, b)
     pts = torch.where((size == 1)[..., None, None], single[..., None, :], pts)
-    pts = to_int_trunc(round_half_away(pts), torch.int32)
+    pts = to_int32_sat(round_half_away(pts))
     mask = i < size[..., None].float()
     return pts, mask

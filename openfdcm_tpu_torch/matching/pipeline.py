@@ -134,9 +134,14 @@ def build_featuremap_batch(scenes, params: fm.Dt3Params = fm.Dt3Params(),
 
 def _budget(device: torch.device) -> int:
     """Bytes a search dispatch may plan for on ``device``: a quarter of
-    the card's free memory, :data:`CPU_BUDGET` on the CPU."""
+    the card's free memory, :data:`CPU_BUDGET` on the CPU.  Free counts
+    the blocks PyTorch's caching allocator holds but no tensor uses: an
+    earlier dispatch's cached memory is reused, so it must not shrink (and
+    split) the next one."""
     if device.type == "cuda":
-        return torch.cuda.mem_get_info(device)[0] // 4
+        cached = (torch.cuda.memory_reserved(device)
+                  - torch.cuda.memory_allocated(device))
+        return (torch.cuda.mem_get_info(device)[0] + cached) // 4
     return CPU_BUDGET
 
 

@@ -510,3 +510,106 @@ def test_host_ranking_and_dense_cuda_match_cpu():
                 assert (g.tmpl_idx, g.score) == (w.tmpl_idx, w.score)
                 np.testing.assert_allclose(g.transform, w.transform, rtol=1e-6,
                                            atol=1e-5)
+
+
+def _serving_case():
+    rng = np.random.default_rng(14)
+    base = rng.uniform(0, 60, (7, 4)).astype(np.float32)
+    templates = [base, base[:5] * np.float32(0.8), base[2:] * np.float32(1.1)]
+    scenes = [np.concatenate([t + 20 + 5 * i, rng.uniform(0, 100, (8, 4))]).astype(np.float32)
+              for i, t in enumerate(templates * 2)]
+    return templates, scenes
+
+
+def test_serving_cuda_equals_direct_calls():
+    """``MatcherService`` on the card: concurrent requests equal a direct
+    ``match_many`` on the card exactly, and the CPU's."""
+    import threading
+    templates, scenes = _serving_case()
+    params = ot.Dt3Params(8, 5.0, 1.5, ot.Distance.L2)
+    kw = dict(penalty=ot.ExponentialPenalty(1.5), top_k=5)
+    args = (params, ot.DefaultSearch(3, 5), ot.BatchOptimize(5))
+    direct = ot.match_many(scenes, templates, *args, device="cuda", **kw)
+    cpu = ot.match_many(scenes, templates, *args, device="cpu", **kw)
+    out = [None] * len(scenes)
+    with ot.MatcherService(templates, *args, max_batch_delay_s=0.02,
+                           device="cuda", **kw) as svc:
+        svc.warmup(scenes[:1])
+        threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+            i, svc.match(scenes[i], timeout=300))) for i in range(len(scenes))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    for got, want, ref in zip(out, direct, cpu):
+        assert len(got) == len(want) == len(ref) > 0
+        for g, w, r in zip(got, want, ref):
+            assert (g.tmpl_idx, g.score) == (w.tmpl_idx, w.score) == (r.tmpl_idx, r.score)
+            np.testing.assert_array_equal(g.transform, w.transform)
+
+
+def test_multiview_vote_cuda_matches_cpu():
+    from openfdcm_tpu_torch import pose
+    rng = np.random.default_rng(15)
+    v, k = 4, 10
+    cams = [pose.Camera(np.asarray([[500, 0, 0], [0, 500, 0], [0, 0, 1]], np.float32),
+                        np.eye(3, dtype=np.float32),
+                        np.asarray([-20.0 * i, 0, 500], np.float32)) for i in range(v)]
+    objs = rng.uniform(-60, 60, (4, 3)).astype(np.float32)
+    objs[:, 2] = 0
+    centers = rng.uniform(-200, 200, (v, k, 2)).astype(np.float32)
+    tidx = rng.integers(0, 6, (v, k)).astype(np.int32)
+    valid = rng.uniform(size=(v, k)) < 0.9
+    kk, rr, tt = (np.stack([getattr(c, n) for c in cams]) for n in ("k", "r", "t"))
+    for vi in range(v):
+        cam = objs @ rr[vi].T + tt[vi]
+        pix = cam[:, :2] * 500 / cam[:, 2:]
+        centers[vi, :4] = pix + rng.normal(0, 0.5, (4, 2))
+        tidx[vi, :4], valid[vi, :4] = np.arange(4), True
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = [x.cpu().numpy() for x in pose.multiview_vote(
+            *(torch.as_tensor(a, device=dev) for a in (centers, tidx, valid, kk, rr, tt)),
+            eps_px=6.0)]
+    g, w = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(g[1], w[1])
+    np.testing.assert_array_equal(g[3], w[3])
+    assert w[1].max() == 4
+    voted = w[1] > 0
+    np.testing.assert_allclose(g[0][voted], w[0][voted], atol=1e-3)
+    np.testing.assert_allclose(g[2][voted], w[2][voted], atol=1e-3)
+
+
+def test_compat_cuda_featuremap_matches_cpu():
+    import openfdcm_tpu_torch.compat as openfdcm
+    rng = np.random.default_rng(16)
+    tmpl = rng.uniform(0, 60, (10, 4)).astype(np.float32)
+    scene = np.concatenate([tmpl + 30, rng.uniform(0, 120, (10, 4))]).astype(np.float32)
+    params = openfdcm.Dt3CpuParameters(8, 5.0, 2.2, openfdcm.distance.L2)
+    fm = {d: openfdcm.build_cpu_featuremap(scene.T, params, device=d) for d in ("cuda", "cpu")}
+    gm, cm = fm["cuda"].get_dt3_map(), fm["cpu"].get_dt3_map()
+    assert list(gm) == list(cm)
+    for a in gm:
+        assert isinstance(gm[a], np.ndarray)
+        np.testing.assert_array_equal(gm[a], cm[a])
+    np.testing.assert_array_equal(fm["cuda"].get_scene_translation(),
+                                  fm["cpu"].get_scene_translation())
+    res = {d: openfdcm.sort_matches(openfdcm.search(
+        openfdcm.DefaultMatch(), openfdcm.DefaultSearch(4, 10),
+        openfdcm.DefaultOptimize(), fm[d], [tmpl], scene)) for d in fm}
+    assert len(res["cuda"]) == len(res["cpu"]) > 0
+    for g, c in zip(res["cuda"], res["cpu"]):
+        assert (g.tmpl_idx, g.score) == (c.tmpl_idx, c.score)
+
+
+def test_budget_unchanged_by_the_allocator_cache():
+    """A freed 4 GiB block stays in PyTorch's cache; the dispatch budget
+    counts it as free, so it does not shrink."""
+    from openfdcm_tpu_torch.matching import pipeline
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.synchronize()
+    before = pipeline._budget(dev)
+    x = torch.empty(1 << 30, dtype=torch.float32, device=dev)
+    del x
+    after = pipeline._budget(dev)
+    assert abs(after - before) < (64 << 20) // 4

@@ -39,9 +39,10 @@ def test_import_does_not_import_jax():
 
 
 def test_every_module_and_export_leaves_jax_out():
-    """Every module of the port, every name it exports, and ``chip_smoke``
-    import without JAX or anything of ``openfdcm_tpu``; the exports include
-    the matching API of the JAX package that the port carries."""
+    """Every module of the port (``__main__``, ``compat``, ``serving``,
+    ``sweep``, ``pose`` and ``viz`` among them), every name it exports, and
+    ``chip_smoke`` import without JAX or anything of ``openfdcm_tpu``; the
+    exports cover the JAX package's, less its relay helpers."""
     res = _run("import importlib, pkgutil, sys\n"
                "import openfdcm_tpu_torch as ot, chip_smoke\n"
                "mods = [m.name for m in pkgutil.walk_packages(ot.__path__, "
@@ -52,8 +53,14 @@ def test_every_module_and_export_leaves_jax_out():
                "need = {'ConcentricRangeStrategy', 'establish_search_strategy', "
                "'Dt3Featuremap', 'build_featuremap', 'evaluate', "
                "'minmax_translation', 'save_featuremap', 'load_featuremap', "
-               "'optimize', 'penalize', 'search', 'search_batch'}\n"
+               "'optimize', 'penalize', 'search', 'search_batch', "
+               "'distance', 'version_info', 'read', 'write', 'OpenFDCMError', "
+               "'PointOutOfBound', 'ImgProcError', 'geometry', 'io', 'utils', "
+               "'profiling', 'resumable_sweep', 'SweepState', 'MatcherService'}\n"
                "assert need <= set(ot.__all__), need - set(ot.__all__)\n"
+               "for m in ('compat', 'serving', 'sweep', 'pose', 'viz', "
+               "'__main__', 'core.io', 'core.utils', 'core.errors'):\n"
+               "    assert 'openfdcm_tpu_torch.' + m in mods, m\n"
                "bad = [m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'jaxlib', 'openfdcm_tpu')]\n"
                "assert not bad, bad\n"

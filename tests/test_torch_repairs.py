@@ -1,4 +1,4 @@
-"""Four faults of the port against the JAX package, repaired:
+"""Faults of the port, repaired (the first four against the JAX package):
 
 * a window generation that cannot serve a dispatch's canvas (generation 2
   below 256 px, generation 3 off multiples of 128) runs generation 4's
@@ -9,7 +9,9 @@
 * a dispatch that exceeds the device budget splits along the template axis
   (top-k path) or the pair axis (host path), with results equal to the
   unsplit run;
-* ``IndulgentOptimize.get_number_of_passthroughs``.
+* ``IndulgentOptimize.get_number_of_passthroughs``;
+* the dispatch budget counts the caching allocator's unused blocks as
+  free, so an earlier dispatch's cache does not split the next one.
 """
 import numpy as np
 import pytest
@@ -198,3 +200,16 @@ def test_indulgent_number_of_passthroughs():
     assert ot.IndulgentOptimize(3).get_number_of_passthroughs() == 3
     assert ot.IndulgentOptimize().get_number_of_passthroughs() == \
         of.IndulgentOptimize().get_number_of_passthroughs()
+
+
+def test_budget_counts_cached_blocks_as_free(monkeypatch):
+    """On the card the budget is a quarter of the free memory plus what
+    the caching allocator holds unused: a repeated run plans the same
+    dispatches as the first (a whole-bank run once split in two because
+    the first run's cache had left less free memory)."""
+    gib = 1 << 30
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d=None: (40 * gib, 80 * gib))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda d=None: 12 * gib)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d=None: 4 * gib)
+    assert tpipe._budget(torch.device("cuda", 0)) == 12 * gib
+    assert tpipe._budget(torch.device("cpu")) == tpipe.CPU_BUDGET
