@@ -94,7 +94,24 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
    ``openfdcm_tpu_torch.compat`` on the card (L2, L1, L2²), its sorted
    matches equal to the CPU's;
 20. profile: one more phase-15 serving run under ``torch.profiler`` —
-   device busy share, launches, device time by kernel.
+   device busy share, launches, device time by kernel;
+21-27. the sharded paths (``openfdcm_tpu_torch.parallel``), each on a mesh
+   whose entry ``i`` is visible card ``i`` modulo their count (on one card
+   every entry names it and the shards run in turn: the sharding is
+   checked, its scaling is not measured), each printing its wall beside
+   the unsharded call's and its launches: 21 ``("scene", 4)``:
+   bank 0's build bit-equal, ``match_many`` over the 4 banks equal to phase
+   5's rows, DefaultOptimize under generations 2 and 3 (K5, K6) equal to
+   unsharded; 22 ``("cand", 4)``: one scene's ``search`` equal to
+   unsharded; 23 ``("scene", 2) x ("cand", 2)``:
+   ``optimize_candidates_sharded_batch`` on two scenes' candidates and
+   ``topk_candidates`` equal to the unsharded kernel call; 24 ``("scene",
+   2) x ("bank", 2)``: ``match_many_bank_sharded`` on the whole bank equal
+   to phase 14's rows by (score, template); 25 ``("rows", 4)``: one scene's
+   ``build_featuremap_spatial`` bit-equal, ``search_spatial`` equal to
+   ``search``; 26 ``MatcherService(mesh=)`` and a killed and resumed
+   ``resumable_sweep(mesh=)`` equal to phase 14's rows; 27 ``global_topk``
+   equal to ``topk_candidates``.
 
 Phase 3 also holds one dense 64-lane K1 call against the plain version,
 and phase 4 adds DenseOptimize and the host ranking path; every CUDA
@@ -676,13 +693,14 @@ def phase_ieee(device):
 
 
 def run_slice(banks, params, searcher, optimizer, penalty, device, timer,
-              top_k=TOP_K):
+              top_k=TOP_K, mesh=None):
     results = []
     for templates, scenes, _ in banks:
         bank, lengths = make_bank(templates, device)
         results.append(of.match_many(scenes, bank, params, searcher, optimizer,
                                      penalty=penalty, template_lengths=lengths,
-                                     top_k=top_k, device=device, timer=timer))
+                                     top_k=top_k, device=device, timer=timer,
+                                     mesh=mesh))
     torch.cuda.synchronize()
     return results
 
@@ -1337,7 +1355,7 @@ def phase_whole_bank(banks, params, searcher, optimizer, penalty, device):
     for name, w in (("run 1", wall1), ("run 2", wall2)):
         print(f"[bank] {name}: {w:.4f} s, {len(scenes) / w:.3f} scenes/s, "
               f"{pairs / w:.1f} templates x scenes per s")
-    return ref
+    return ref, wall2
 
 
 def serve_once(svc, scenes, n_clients=4):
@@ -1400,6 +1418,7 @@ def phase_serving(banks, params, searcher, optimizer, penalty, device, ref):
           f"requests/s, latency median {np.median(lat) * 1e3:.1f} ms, max "
           f"{max(lat) * 1e3:.1f} ms, {n_disp} dispatches, launches "
           f"{short(launches)}, host syncs {syncs}; submit after close raises")
+    return wall
 
 
 def phase_sweep(banks, params, searcher, optimizer, penalty, device, ref,
@@ -1462,6 +1481,7 @@ def phase_sweep(banks, params, searcher, optimizer, penalty, device, ref,
           f"rows); resumed run {wall:.4f} s (lazy .tmpl reads included), "
           f"{sum(ran) * len(scenes) / wall:.1f} templates x scenes per s, "
           f"launches {short(launches)}, host syncs {syncs}")
+    return wall
 
 
 def run_cli(args, timeout=600):
@@ -1743,6 +1763,298 @@ def phase_profile_serving(banks, params, searcher, optimizer, penalty, device):
         print(f"[profile] serving {ms:10.3f} ms {count:7d}x  {name[:100]}")
 
 
+# ---------------------------------------------------------------------------
+# the sharded paths on a mesh of entries of one card (phases 21-27)
+# ---------------------------------------------------------------------------
+
+def card_mesh(shape, axes, device):
+    """A mesh over the visible cards, entry ``i`` on card ``i`` modulo their
+    count.  On one card every entry names it and the shards run in turn:
+    that shows the sharding is right, not that it scales."""
+    from openfdcm_tpu_torch.parallel import make_mesh
+    n, dev = int(np.prod(shape)), torch.device(device)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    devices = [torch.device("cuda", i % cards) if dev.type == "cuda" else dev
+               for i in range(n)]
+    return make_mesh(shape, axes, devices=devices)
+
+
+def sync_cards():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def timed(fn):
+    """``(result, wall s, launches)`` of ``fn()``, the counts set to 0 just
+    before it and read just after (every card synchronized)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    sync_cards()
+    wall = time.perf_counter() - t0
+    return out, wall, read_counts()[0]
+
+
+def mesh_line(tag, label, mesh, wall, wall_plain, launches):
+    n, cards = mesh.devices.size, len(mesh.distinct())
+    print(f"[{tag}] {label}: {wall:.4f} s on a mesh of {n} entries over "
+          f"{cards} card(s), {wall_plain:.4f} s unsharded; launches "
+          f"{short(launches)}")
+
+
+def check_launched(launches, names, label):
+    for name in names:
+        check(launches[name] > 0, f"{label}: kernel {name} was not launched")
+
+
+def phase_mesh_scene(banks, params, searcher, optimizer, penalty, device,
+                     batch_ref):
+    """A ``("scene", 4)`` mesh: bank 0's 10-scene build (padded to 12, three
+    scenes a block) bit-equal to the unsharded build; ``match_many`` over
+    each bank equal to the slice's rows; DefaultOptimize on bank 0 under
+    generations 2 and 3 (K5, K6 on the shards) equal to the unsharded
+    runs."""
+    mesh = card_mesh((4,), ("scene",), device)
+    templates, scenes, _ = banks[0]
+    ref, wall_u, _ = timed(lambda: of.build_featuremap_batch(scenes, params,
+                                                             device=device))
+    sh, wall, launches = timed(lambda: of.build_featuremap_batch(scenes, params,
+                                                                 mesh=mesh))
+    n_bad = mismatches(sh.dt3, ref.dt3)
+    check(n_bad == 0, f"scene mesh: the build differs in {n_bad} cells")
+    for name in BUILD_KERNELS:
+        check(launches[name] == 4,
+              f"scene mesh: {name} launched {launches[name]} times")
+    mesh_line("mesh scene", f"bank 0 build {tuple(sh.dt3.shape)}, bit-equal", mesh,
+              wall, wall_u, launches)
+    with generation(4):
+        _, wall_u, _ = timed(lambda: run_slice(banks, params, searcher, optimizer,
+                                               penalty, device, None))
+        res, wall, launches = timed(lambda: run_slice(
+            banks, params, searcher, optimizer, penalty, device, None, mesh=mesh))
+        rows, wall_p = profiled(lambda: run_slice(
+            banks, params, searcher, optimizer, penalty, device, None, mesh=mesh))
+    check_path_launches(launches, 4, "scene mesh match_many")
+    n = same_lists(res, batch_ref, "scene mesh match_many vs the slice")
+    mesh_line("mesh scene", f"match_many over the {len(banks)} banks, {n} "
+              f"top-{TOP_K} rows equal the slice's", mesh, wall, wall_u, launches)
+    busy = sum(r[2] for r in rows)
+    print(f"[mesh scene] profiled: wall {wall_p * 1e3:.3f} ms, device busy "
+          f"{busy:.3f} ms ({busy / (wall_p * 1e3):.3f} of wall)")
+    for version in (2, 3):
+        with generation(version):
+            want, wall_u, _ = timed(lambda: run_slice(
+                banks[:1], params, searcher, of.DefaultOptimize(), penalty,
+                device, None))
+            got, wall, launches = timed(lambda: run_slice(
+                banks[:1], params, searcher, of.DefaultOptimize(), penalty,
+                device, None, mesh=mesh))
+        check_path_launches(launches, version, f"scene mesh, generation {version}")
+        n = same_lists(got, want, f"scene mesh, generation {version}")
+        mesh_line("mesh scene", f"DefaultOptimize, generation {version}, bank 0, "
+                  f"{n} rows equal", mesh, wall, wall_u, launches)
+
+
+def phase_mesh_cand(banks, params, searcher, optimizer, penalty, device):
+    """A ``("cand", 4)`` mesh: one bank-0 scene's ``search`` with its
+    candidates in four blocks equals the unsharded single-scene search."""
+    mesh = card_mesh((4,), ("cand",), device)
+    templates, scenes, _ = banks[0]
+    bank, _ = make_bank(templates, device)
+    fm = of.build_featuremap(scenes[0], params, device=device)
+    with generation(4):
+        want, wall_u, _ = timed(lambda: of.search(of.DefaultMatch(), searcher,
+                                                  optimizer, fm, bank, scenes[0]))
+        got, wall, launches = timed(lambda: of.search(
+            of.DefaultMatch(), searcher, optimizer, fm, bank, scenes[0], mesh=mesh))
+    check_launched(launches, SEARCH_KERNELS[4], "cand mesh search")
+    n = same_lists([[got]], [[want]], "cand mesh search vs search")
+    mesh_line("mesh cand", f"search of bank-0 scene 0, {n} matches equal", mesh,
+              wall, wall_u, launches)
+
+
+def phase_mesh_optimize(banks, params, searcher, optimizer, penalty, device):
+    """A ``("scene", 2) x ("cand", 2)`` mesh: ``optimize_candidates_sharded_batch``
+    on two bank-0 scenes' real candidates equals the unsharded kernel call,
+    and so does ``topk_candidates`` on its scores.  Returns scene 0's
+    scores and validity for the ``global_topk`` phase."""
+    from openfdcm_tpu_torch.matching.match import _bucket, _scene_candidates
+    from openfdcm_tpu_torch.matching.optimize_kernel import \
+        optimize_candidates_batch_kernel
+    from openfdcm_tpu_torch.matching.pipeline import _bank_pairs_for_scene
+    from openfdcm_tpu_torch.parallel import (optimize_candidates_sharded_batch,
+                                             topk_candidates)
+    mesh = card_mesh((2, 2), ("scene", "cand"), device)
+    templates, scenes, _ = banks[0]
+    bank, _ = make_bank(templates, device)
+    two = scenes[:2]
+    fms = of.build_featuremap_batch(two, params, device=device)
+    pairs = [_bank_pairs_for_scene(searcher, bank, s) for s in two]
+    pb = _bucket(max(p.shape[0] for p in pairs), 64)
+    lines, mask, align, _, ok = (torch.stack(x) for x in zip(
+        *[_scene_candidates(bank, p, s, pb) for p, s in zip(pairs, two)]))
+    mode, window = opt_mod.optimizer_mode(optimizer)
+    fs = torch.tensor([[float(w), float(h)] for w, h in fms.feature_sizes],
+                      device=fms.dt3.device)
+    kw = dict(mode=mode, window=max(window, 1), cand_ok=ok,
+              dense_steps=opt_mod.dense_step_count(optimizer, int(fs.max())))
+    s_count, _, ph, pw = fms.dt3.shape
+    with generation(4):
+        want, wall_u, _ = timed(lambda: optimize_candidates_batch_kernel(
+            fms.dt3, fms.angles, fms.scene_translations, fs, lines, mask, align,
+            **kw))
+        got, wall, launches = timed(lambda: optimize_candidates_sharded_batch(
+            mesh, fms.dt3.reshape(s_count, -1), fms.angles,
+            fms.scene_translations, (ph, pw), fs, lines, mask, align, **kw))
+    check_launched(launches, SEARCH_KERNELS[4], "2-D optimize")
+    bad = [mismatches(g, w) for g, w in zip(got, want)]
+    check(bad == [0, 0, 0], f"2-D optimize: mismatches (scores, translations, "
+          f"valid) {bad}")
+    for i in range(s_count):
+        a = topk_candidates(got[0][i], got[2][i] & ok[i], TOP_K)
+        b = topk_candidates(want[0][i], want[2][i] & ok[i], TOP_K)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"2-D optimize: scene {i}'s top-{TOP_K} differs")
+    mesh_line("mesh optimize", f"2 scenes x {lines.shape[1]} candidates "
+              f"({int((got[2] & ok).sum())} valid), scores, translations, "
+              f"validity and top-{TOP_K} equal", mesh, wall, wall_u, launches)
+    return got[0][0], got[2][0] & ok[0]
+
+
+def sorted_rows(res):
+    """Each scene's matches in a stable order by (score, template id): the
+    bank-sharded path ranks equal scores by its own candidate index."""
+    return [[sorted(ms, key=lambda m: (m.score, m.tmpl_idx)) for ms in res]]
+
+
+def phase_mesh_bank(banks, params, searcher, optimizer, penalty, device, ref,
+                    wall_u):
+    """A ``("scene", 2) x ("bank", 2)`` mesh: ``match_many_bank_sharded``
+    on the whole 420-template bank, each bank shard's tables uploaded to its
+    entry, equals the whole-bank rows (``ref``)."""
+    from openfdcm_tpu_torch.parallel import match_many_bank_sharded
+    mesh = card_mesh((2, 2), ("scene", "bank"), device)
+    templates, scenes, _ = whole_bank(banks)
+    with generation(4):
+        res, wall, launches = timed(lambda: match_many_bank_sharded(
+            scenes, templates, params, searcher, optimizer, mesh=mesh,
+            top_k=TOP_K, penalty=penalty,
+            template_lengths=of.get_template_lengths(templates)))
+    check_path_launches(launches, 4, "bank mesh")
+    n = same_lists(sorted_rows(res), sorted_rows(ref),
+                   "bank-sharded vs whole-bank match_many")
+    ties = sum(len({m.score for m in ms}) < len(ms) for ms in ref)
+    mesh_line("mesh bank", f"{len(scenes)} scenes x {len(templates)} templates, "
+              f"{n} rows equal the whole-bank rows by (score, template) "
+              f"({ties} scenes hold equal scores)", mesh, wall, wall_u, launches)
+
+
+def phase_mesh_rows(banks, params, searcher, optimizer, penalty, device):
+    """A ``("rows", 4)`` mesh: one bank-0 scene built in four row blocks
+    (K2 and K3 per block) bit-equal to ``build_featuremap`` on the logical
+    region; ``search_spatial`` against bank 0, every probe read through the
+    blocks, equal to ``search``."""
+    from openfdcm_tpu_torch.parallel import build_featuremap_spatial, search_spatial
+    mesh = card_mesh((4,), ("rows",), device)
+    templates, scenes, _ = banks[0]
+    bank, _ = make_bank(templates, device)
+    ref, wall_u, _ = timed(lambda: of.build_featuremap(scenes[0], params,
+                                                       device=device))
+    sp, wall, launches = timed(lambda: build_featuremap_spatial(
+        scenes[0], params, mesh=mesh))
+    w, h = ref.feature_size
+    n_bad = mismatches(sp.dt3.gather()[:, :h, :w], ref.dt3[:, :h, :w])
+    check(n_bad == 0 and sp.feature_size == ref.feature_size,
+          f"row mesh: the build differs in {n_bad} cells")
+    for name in ("K2_minplus_rows", "K3_propagate_orientation"):
+        check(launches[name] == 4,
+              f"row mesh: {name} launched {launches[name]} times")
+    mesh_line("mesh rows", f"build of bank-0 scene 0, {len(sp.dt3.blocks)} blocks "
+              f"of {tuple(sp.dt3.blocks[0].shape)}, bit-equal on {h} x {w}", mesh,
+              wall, wall_u, launches)
+    with generation(4):
+        want, wall_u, _ = timed(lambda: of.search(of.DefaultMatch(), searcher,
+                                                  optimizer, ref, bank, scenes[0]))
+        got, wall, launches = timed(lambda: search_spatial(
+            searcher, optimizer, sp, bank, scenes[0], mesh=mesh))
+    n = same_lists([[got]], [[want]], "search_spatial vs search")
+    mesh_line("mesh rows", f"search_spatial against bank 0, {n} matches equal "
+              f"(its windows in K1's arithmetic through the blocks)", mesh, wall,
+              wall_u, launches)
+
+
+def phase_mesh_serving_sweep(banks, params, searcher, optimizer, penalty, device,
+                             ref, serve_wall, sweep_wall, tmpl_paths, root):
+    """``MatcherService(mesh=("scene", 4))`` answering the 40 scenes from 4
+    threads, and ``resumable_sweep(mesh=...)`` killed on its third chunk and
+    resumed: each equal to the whole-bank rows."""
+    from openfdcm_tpu_torch import sweep as sweep_mod
+    mesh = card_mesh((4,), ("scene",), device)
+    templates, scenes, _ = whole_bank(banks)
+    lengths = of.get_template_lengths(templates)
+    svc = of.MatcherService(templates, params, searcher, optimizer, top_k=TOP_K,
+                            penalty=penalty, template_lengths=lengths,
+                            max_batch=16, mesh=mesh)
+    try:
+        svc.warmup(scenes[:2])
+        d0 = svc.dispatches
+        (results, lat, wall), _, launches = timed(lambda: serve_once(svc, scenes))
+        n_disp = svc.dispatches - d0
+    finally:
+        svc.close()
+    check_path_launches(launches, 4, "meshed serving")
+    n = same_lists([results], [ref], "meshed serving vs whole-bank match_many")
+    mesh_line("mesh serving", f"{len(scenes)} requests from 4 threads, {n_disp} "
+              f"dispatches, every answer equals the whole-bank row ({n} rows), "
+              f"{len(scenes) / wall:.3f} requests/s, latency median "
+              f"{np.median(lat) * 1e3:.1f} ms", mesh, wall, serve_wall, launches)
+
+    state_dir = os.path.join(root, "mesh_sweep_state")
+    kw = dict(top_k=TOP_K, state_dir=state_dir, penalty=penalty,
+              template_lengths=lengths, chunk_size=len(banks[0][0]), mesh=mesh)
+    real, calls = sweep_mod.match_many, []
+
+    class Killed(RuntimeError):
+        pass
+
+    def dying(*a, **k):
+        calls.append(k.get("mesh"))
+        if len(calls) == 3:
+            raise Killed("killed on the third chunk")
+        return real(*a, **k)
+    sweep_mod.match_many = dying
+    try:
+        of.resumable_sweep(scenes, tmpl_paths, params, searcher, optimizer, **kw)
+        killed = False
+    except Killed:
+        killed = True
+    finally:
+        sweep_mod.match_many = real
+    state = of.SweepState.load(state_dir)
+    check(killed and state is not None and state.done_chunks == 2
+          and all(m is mesh for m in calls), "meshed sweep: not killed on chunk 3")
+    res, wall, launches = timed(lambda: of.resumable_sweep(
+        scenes, tmpl_paths, params, searcher, optimizer, **kw))
+    check_path_launches(launches, 4, "meshed sweep")
+    n = same_lists([res], [ref], "meshed resumed sweep vs whole-bank match_many")
+    mesh_line("mesh sweep", f"killed on chunk 3 (checkpoint 2), resumed: equals "
+              f"the whole-bank rows ({n} rows)", mesh, wall, sweep_wall, launches)
+
+
+def phase_mesh_global_topk(scores, valid, device):
+    """``global_topk`` on a ``("cand", 4)`` mesh over real candidate scores
+    equals ``topk_candidates`` on the whole row."""
+    from openfdcm_tpu_torch.parallel import global_topk, topk_candidates
+    mesh = card_mesh((4,), ("cand",), device)
+    want, wall_u, _ = timed(lambda: topk_candidates(scores, valid, TOP_K))
+    got, wall, launches = timed(lambda: global_topk(mesh, scores, valid, TOP_K))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "global_topk differs from topk_candidates")
+    mesh_line("mesh topk", f"global_topk of {scores.shape[0]} scores "
+              f"({int(valid.sum())} valid) equals topk_candidates", mesh, wall,
+              wall_u, launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1771,10 +2083,18 @@ def main(argv=None) -> int:
         phase_profile(banks, *cfg, report)
         with tempfile.TemporaryDirectory() as root:
             tdir, sdir, tmpl_paths, scene_paths = phase_files(banks, root)
-            ref = phase_whole_bank(banks, *cfg)
-            phase_serving(banks, *cfg, ref)
-            phase_sweep(banks, *cfg, ref, tmpl_paths, root)
+            ref, bank_wall = phase_whole_bank(banks, *cfg)
+            serve_wall = phase_serving(banks, *cfg, ref)
+            sweep_wall = phase_sweep(banks, *cfg, ref, tmpl_paths, root)
             phase_cli(banks, ref, tdir, sdir, scene_paths, root, device)
+            phase_mesh_scene(banks, *cfg, batch_ref)
+            phase_mesh_cand(banks, *cfg)
+            scores, valid = phase_mesh_optimize(banks, *cfg)
+            phase_mesh_bank(banks, *cfg, ref, bank_wall)
+            phase_mesh_rows(banks, *cfg)
+            phase_mesh_serving_sweep(banks, *cfg, ref, serve_wall, sweep_wall,
+                                     tmpl_paths, root)
+            phase_mesh_global_topk(scores, valid, device)
         phase_pose(banks, *cfg, args.seed)
         phase_compat(device)
         phase_profile_serving(banks, *cfg)

@@ -12,6 +12,7 @@ device-side top-k or host ranking; and the reference-shaped ``search``,
 ``optimize``, ``evaluate`` and ``penalize``.  Around it: line-file I/O,
 the geometry, rasterize and draw helpers, :class:`MatcherService`
 (serving), :func:`resumable_sweep`, the pose stage (:mod:`.pose`),
+sharding across a device mesh (:mod:`.parallel`),
 :mod:`.viz`, the drop-in :mod:`.compat` (``import openfdcm_tpu_torch.compat
 as openfdcm``) and the CLI (``python -m openfdcm_tpu_torch``).  Every
 kernel wrapper runs the CUDA kernel on CUDA tensors and its plain PyTorch
@@ -45,7 +46,7 @@ from .matching.pipeline import (
 from .profiling import StageTimer
 from .sweep import resumable_sweep, SweepState
 from .serving import MatcherService
-from . import convert
+from . import convert, parallel
 
 # The reference spells the enum `openfdcm.distance`.
 distance = Distance

@@ -33,6 +33,38 @@ def _nearest_1d_l1(f: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.minimum(fwd, -i + bwd)
 
 
+def column_pass_rows(blocks) -> list:
+    """:func:`_nearest_1d_l1` along H (``dim=-2``) of a stack split into row
+    blocks ``blocks[b] (..., h_b, W)``, each on its own device (JAX
+    ``parallel.spatial._column_pass_sharded``): per block the forward and
+    backward cumulative minima over its own rows, combined with carries,
+    the minimum of the earlier (later) blocks' last (first) rows, gathered
+    onto the block's device.  Every value is an integer or ``F32_MAX``, and
+    min is exact, so each block equals its rows of the unsharded pass."""
+    ys, fwd, bwd = [], [], []
+    y0 = 0
+    for blk in blocks:
+        n = blk.shape[-2]
+        y = torch.arange(y0, y0 + n, dtype=torch.float32,
+                         device=blk.device).reshape(n, 1)
+        ys.append(y)
+        fwd.append(torch.cummin(blk - y, dim=-2).values)
+        bwd.append(torch.flip(torch.cummin(torch.flip(blk + y, (-2,)),
+                                           dim=-2).values, (-2,)))
+        y0 += n
+    out = []
+    for b, (blk, y) in enumerate(zip(blocks, ys)):
+        f, r = fwd[b], bwd[b]
+        if b > 0:
+            f = torch.minimum(f, torch.stack(
+                [x[..., -1:, :].to(blk.device) for x in fwd[:b]]).amin(0))
+        if b + 1 < len(blocks):
+            r = torch.minimum(r, torch.stack(
+                [x[..., :1, :].to(blk.device) for x in bwd[b + 1:]]).amin(0))
+        out.append(torch.minimum(y + f, -y + r))
+    return out
+
+
 def row_pass(g: torch.Tensor, *, metric: Distance) -> torch.Tensor:
     """Horizontal combine of the column-pass distances ``g (..., H, W)``."""
     if metric == Distance.L1:

@@ -76,6 +76,23 @@ def sweep_tables(angles, logical_hw, phys_h: int, phys_w: int):
     return deltas, table.reshape(s * d, 3)
 
 
+def sweep_groups(angles, logical_hw, phys_h: int, phys_w: int):
+    """One scene's slices grouped by sweep, from :func:`sweep_tables`:
+    ``[(x_major, flip, slices (G,), deltas (G, N))]``, ``N`` the swept
+    physical axis (PW when ``x_major``, else PH) and each slice's deltas by
+    physical position (JAX ``core.integral._group_geometry`` with the flip
+    mapping applied)."""
+    deltas, table = sweep_tables(angles, [logical_hw], phys_h, phys_w)
+    groups = []
+    for x_major in (True, False):
+        n = phys_w if x_major else phys_h
+        for flip in (False, True):
+            sel = np.flatnonzero((table[:, 0] == x_major) & (table[:, 1] == flip))
+            if sel.size:
+                groups.append((x_major, flip, sel, deltas[table[sel, 2], :n]))
+    return groups
+
+
 def line_integral_stack(imgs: torch.Tensor, angles, logical_hw) -> torch.Tensor:
     """Line integrals of a scene batch ``(S, D, PH, PW)``, one static angle
     per slice, computed in place (one K4 launch); returns ``imgs``.

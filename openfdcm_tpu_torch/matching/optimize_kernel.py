@@ -166,9 +166,8 @@ def _straggler(state, sign, t_lim, chain_cov, walk, eval_at, ext_eval,
     return tuple(x.index_put((sel,), v) for x, v in zip(state, sub))
 
 
-def _dense(li, ep, sid, wt, tr, safe_rast, t_pos, t_neg, dense_steps,
-           tiles):
-    """DenseOptimize on K1 (JAX ``optimize.optimize_candidates``, mode
+def _dense(window, ep, sid, wt, tr, safe_rast, t_pos, t_neg, dense_steps):
+    """DenseOptimize on ``window`` (K1; JAX ``optimize.optimize_candidates``, mode
     ``"dense"``): the aligned score, then per direction ``dense_steps / 64``
     one-sided windows from ``t0 = 1 + 64 i``; steps past the candidate's
     limit are masked, the first minimum of a window replaces the best only
@@ -176,10 +175,10 @@ def _dense(li, ep, sid, wt, tr, safe_rast, t_pos, t_neg, dense_steps,
     starts gets weight 0 in it: K1 skips its lines and its lanes are
     masked anyway.  Returns ``(best (M,), step multiplier (M,))``."""
     m = wt.shape[0]
-    dev = li.device
+    dev = wt.device
     zero = torch.zeros(m, dtype=torch.float32, device=dev)
-    best = wk.window_scores(li, ep, sid, wt, tr, safe_rast, zero, count=1,
-                            two_sided=False, tiles=tiles)[:, 0]
+    best = window(ep, sid, wt, tr, safe_rast, zero, count=1,
+                  two_sided=False)[:, 0]
     mul = zero
     lanes = torch.arange(wk.K_POS, dtype=torch.float32, device=dev)
     for sign, t_lim in ((1.0, t_pos), (-1.0, t_neg)):
@@ -187,10 +186,8 @@ def _dense(li, ep, sid, wt, tr, safe_rast, t_pos, t_neg, dense_steps,
         for i in range(-(-dense_steps // wk.K_POS)):
             t0 = 1.0 + wk.K_POS * i
             wt_i = torch.where((t_lim >= t0)[:, None], wt, 0.0).contiguous()
-            scores = wk.window_scores(li, ep, sid, wt_i, tr, vdir,
-                                      torch.full_like(zero, t0),
-                                      count=wk.K_POS, two_sided=False,
-                                      tiles=tiles)
+            scores = window(ep, sid, wt_i, tr, vdir, torch.full_like(zero, t0),
+                            count=wk.K_POS, two_sided=False)
             steps = t0 + lanes
             scores = torch.where(steps[None, :] <= t_lim[:, None], scores,
                                  opt._BIG)
@@ -205,7 +202,8 @@ def _dense(li, ep, sid, wt, tr, safe_rast, t_pos, t_neg, dense_steps,
 def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
                                      cand_lines, cand_mask, cand_align, *,
                                      mode: str, window: int,
-                                     dense_steps: int = 0, cand_ok=None):
+                                     dense_steps: int = 0, cand_ok=None,
+                                     take=None):
     """Scene-batched optimize on the window kernel of
     :func:`window_generation` (main and extension pass) and kernel K1
     (lockstep walks and the dense sweep).
@@ -218,11 +216,15 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
     or the batch size; ``dense_steps``: the dense sweep's steps per
     direction (:func:`~.optimize.dense_step_count`).  ``cand_ok``: optional
     ``(S, C)`` candidates the caller masks anyway (kept out of the windows
-    and walks).
+    and walks).  ``take``: a reader of the stack's probe values (JAX
+    ``take_fn``, the row-sharded search's gather): every window then runs
+    :func:`~openfdcm_tpu_torch.ops.window.window_scores_plain`'s arithmetic
+    (K1's line order) through it, and ``li`` stands for the stack through
+    its ``shape`` and ``device`` only.
     Returns ``(scores (S, C), translations (S, C, 2), valid (S, C))``."""
     if mode not in ("default", "indulgent", "batch", "dense"):
         raise ValueError(f"unknown optimizer mode {mode!r}")
-    version = window_generation(li.shape)
+    version = window_generation(li.shape) if take is None else 4
     s, d = li.shape[0], angles.shape[0]
     c, l = cand_mask.shape[1:]
     m = s * c
@@ -253,16 +255,20 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
     t_pos = torch.where(valid_f, torch.trunc(torch.where(valid_f, pos.reshape(m), 0.0)), 0.0)
     t_neg = torch.where(valid_f, torch.trunc(torch.where(valid_f, -neg.reshape(m), 0.0)), 0.0)
 
-    # every window-kernel call of the dispatch reads the tiled copy
-    tiles = wk.tile_stack(li)
+    if take is None:
+        # every window-kernel call of the dispatch reads the tiled copy
+        tiles = wk.tile_stack(li)
+        window_fn = partial(wk.window_scores, li, tiles=tiles)
+    else:
+        window_fn = partial(wk.window_scores_plain, li, take=take)
     if mode == "dense":
-        best, mul = _dense(li, ep, sid, wt, tr, safe_rast, t_pos, t_neg,
-                           dense_steps, tiles)
+        best, mul = _dense(window_fn, ep, sid, wt, tr, safe_rast, t_pos, t_neg,
+                           dense_steps)
         translation = (mul[:, None] * safe_rast).reshape(s, c, 2)
         return best.reshape(s, c), translation, valid
     if version == 4:
-        win = wk.window_scores(li, ep, sid, wt, tr, safe_rast, zero,
-                               count=wk.K_LANES, two_sided=True, tiles=tiles)
+        win = window_fn(ep, sid, wt, tr, safe_rast, zero, count=wk.K_LANES,
+                        two_sided=True)
         tc = torch.full((m,), float(TC), device=dev)
     else:
         entry = wk3.window_scores_v3 if version == 3 else wk2.window_scores_v2
@@ -274,8 +280,8 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
         # a quarantined candidate (tc = 0, weight 0 on every line) has no
         # trusted lane, not even m = 0: its aligned score comes from K1 (the
         # JAX package keeps the lane's 0, a false perfect match: Queue 3)
-        exact0 = wk.window_scores(li, ep, sid, wt, tr, safe_rast, zero,
-                                  count=1, two_sided=False, tiles=tiles)[:, 0]
+        exact0 = window_fn(ep, sid, wt, tr, safe_rast, zero, count=1,
+                           two_sided=False)[:, 0]
         s0 = torch.where(tc == 0, exact0, s0)
     pos_scores = win[:, 1:wk.K_POS]
     neg_scores = win[:, wk.K_POS:]
@@ -284,9 +290,8 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
         vdir = (sign * safe_rast[sel]).contiguous()
 
         def f(t0):
-            return wk.window_scores(li, ep[sel], sid[sel], wt[sel], tr[sel],
-                                    vdir, t0.contiguous(), count=count,
-                                    two_sided=False, tiles=tiles)
+            return window_fn(ep[sel], sid[sel], wt[sel], tr[sel], vdir,
+                             t0.contiguous(), count=count, two_sided=False)
         return f
 
     def ext_eval(sel, active, sign, t0):
@@ -294,9 +299,9 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
         if version == 4:
             cover = torch.where(torch.isfinite(vdir).all(dim=-1) & active,
                                 float(TC), 0.0)
-            return wk.window_scores(li, ep[sel], sid[sel], wt[sel], tr[sel],
-                                    vdir, t0.contiguous(), count=wk.K_POS,
-                                    two_sided=False, tiles=tiles), cover
+            return window_fn(ep[sel], sid[sel], wt[sel], tr[sel], vdir,
+                             t0.contiguous(), count=wk.K_POS,
+                             two_sided=False), cover
         entry = wk3.window_scores_v3_ext if version == 3 \
             else wk2.window_scores_v2_ext
         return entry(li, ep[sel], cm_flat[sel], vdir, active, si_raw[sel],

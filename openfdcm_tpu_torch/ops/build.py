@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -115,9 +116,20 @@ def build() -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=1)
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library, built and loaded once per process: calls
+    that race the first one (a mesh's shards, a service's dispatch thread)
+    wait for it and get the same handle.  ``library.cache_clear()`` forgets
+    it."""
+    with _LIBRARY_LOCK:
+        return _load_library()
+
+
+@functools.lru_cache(maxsize=1)
+def _load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -126,6 +138,9 @@ def library() -> ctypes.CDLL:
     lib.fdcm_error_string.argtypes = [ctypes.c_int]
     lib.fdcm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+library.cache_clear = _load_library.cache_clear
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

@@ -20,15 +20,18 @@ from . import build
 
 
 def sweep_scan_plain(imgs: torch.Tensor, deltas: torch.Tensor, flip: bool,
-                     x_major: bool) -> torch.Tensor:
+                     x_major: bool, init=None) -> torch.Tensor:
     """The sweep of a slice group ``imgs (G, H, W)`` with per-position
     ``deltas (G, N)`` (``N = W`` when ``x_major``, else ``H``), any device:
-    a loop over sweep positions."""
+    a loop over sweep positions.  ``init``: the carry ``(G, H)`` (``(G,
+    W)`` when not ``x_major``) the sweep continues from, zero when None (a
+    row block of the row-sharded build continues its predecessor's)."""
     out = torch.empty_like(imgs)
     src = imgs if x_major else imgs.transpose(1, 2)   # (G, rows, N) views
     dst = out if x_major else out.transpose(1, 2)
     g, rows, n = src.shape
-    carry = torch.zeros((g, rows), dtype=imgs.dtype, device=imgs.device)
+    carry = (torch.zeros((g, rows), dtype=imgs.dtype, device=imgs.device)
+             if init is None else init)
     zero = torch.zeros((g, 1), dtype=imgs.dtype, device=imgs.device)
     for c in (range(n - 1, -1, -1) if flip else range(n)):
         d = deltas[:, c, None]

@@ -95,13 +95,21 @@ def check_tiles(tiles, li) -> None:
 
 
 def window_scores_plain(li, ep, sid, wt, tr, v, t0, *, count: int,
-                        two_sided: bool) -> torch.Tensor:
+                        two_sided: bool, take=None) -> torch.Tensor:
     """Plain PyTorch version, any device: a Python loop over lines so the
-    sum runs in line order, bit-equal to the kernel."""
+    sum runs in line order, bit-equal to the kernel.
+
+    ``take``: optional reader of the stack's values at flat indices,
+    clamped into the stack as the default gather clamps them (the
+    row-sharded search's gather, :mod:`openfdcm_tpu_torch.parallel.spatial`);
+    ``li`` then stands for the stack through its ``shape`` and ``device``
+    only."""
     m_count, n_lines = wt.shape
     q_w = li.shape[-1]
     hw = li.shape[-2] * q_w
-    flat = li.reshape(-1)
+    if take is None:
+        flat = li.reshape(-1)
+        take = lambda idx: flat[idx.clamp(0, flat.numel() - 1)]
     mult = t0[:, None] + lane_steps(count, two_sided, li.device)[None, :]
     trx = tr[:, 0:1] + mult * v[:, 0:1]                      # (M, K)
     tr_y = tr[:, 1:2] + mult * v[:, 1:2]
@@ -113,7 +121,7 @@ def window_scores_plain(li, ep, sid, wt, tr, v, t0, *, count: int,
         def probe(ix, iy):
             xi = to_int_trunc(ep[:, j, ix:ix + 1] + trx)
             yi = to_int_trunc(ep[:, j, iy:iy + 1] + tr_y)
-            return flat[(base + yi * q_w + xi).clamp(0, flat.numel() - 1)]
+            return take(base + yi * q_w + xi)
 
         contrib = (probe(0, 1) - probe(2, 3)).abs() * w
         acc = acc + torch.where(w != 0, contrib, torch.zeros_like(contrib))

@@ -25,10 +25,9 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from .core.types import resolve_device
 from .matching import featuremap as fm
 from .matching.match import TemplateBank, prepare_templates
-from .matching.pipeline import match_many
+from .matching.pipeline import _call_device, match_many
 
 __all__ = ["MatcherService"]
 
@@ -37,13 +36,17 @@ class MatcherService:
     """A long-lived matching service around a fixed template bank on
     ``device`` (default the card; a given :class:`TemplateBank` must be on
     it).  Parameters mirror :func:`openfdcm_tpu_torch.match_many`;
-    ``top_k`` is required (serving returns ranked results)."""
+    ``top_k`` is required (serving returns ranked results).  ``mesh``: an
+    optional :class:`~openfdcm_tpu_torch.parallel.Mesh` every batch runs on
+    (``match_many(..., mesh=mesh)``); it decides ``device`` when that is
+    None."""
 
     def __init__(self, templates, params: fm.Dt3Params, searcher, optimizer,
                  *, top_k: int, penalty=None, template_lengths=None,
-                 max_batch: int = 16, max_batch_delay_s: float = 0.005,
-                 device="cuda"):
-        self.device = resolve_device(device)
+                 mesh=None, max_batch: int = 16,
+                 max_batch_delay_s: float = 0.005, device=None):
+        self.device = _call_device(mesh, device)
+        self.mesh = mesh
         self.bank: TemplateBank = (
             templates if isinstance(templates, TemplateBank)
             else prepare_templates(templates, device=self.device))
@@ -147,7 +150,7 @@ class MatcherService:
                 [s for s, _ in batch], self.bank, self.params, self.searcher,
                 self.optimizer, penalty=self.penalty,
                 template_lengths=self.template_lengths, top_k=self.top_k,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
         except Exception as exc:  # noqa: BLE001 — fail the whole batch
             for f in futs:
                 if not f.cancelled():

@@ -19,10 +19,9 @@ import os
 import numpy as np
 
 from .core.io import read_batch
-from .core.types import resolve_device
 from .matching import featuremap as fm
 from .matching.match import Match
-from .matching.pipeline import match_many
+from .matching.pipeline import _call_device, match_many
 
 __all__ = ["SweepState", "resumable_sweep"]
 
@@ -79,17 +78,19 @@ class SweepState:
 def resumable_sweep(scenes, templates, params: fm.Dt3Params, searcher,
                     optimizer, *, top_k: int, state_dir: str,
                     penalty=None, template_lengths=None,
-                    chunk_size: int = 2048, match_fn=None,
-                    device="cuda") -> list:
+                    chunk_size: int = 2048, mesh=None, match_fn=None,
+                    device=None) -> list:
     """Match ``scenes`` against a (possibly huge) template bank on
-    ``device``, with checkpoint and resume.
+    ``device`` (default the card; with a ``mesh``, every chunk runs
+    ``match_many(..., mesh=mesh)``, which decides ``device`` when that is
+    None), with checkpoint and resume.
 
     ``templates`` may be a list of arrays or of ``.tmpl`` paths (read per
     chunk, so the full bank never resides in host memory).  Returns
     ``list[list[Match]]`` per scene, equal to ``match_many(...,
     top_k=top_k)`` over the whole bank.  ``match_fn(scenes, chunk_templates,
     chunk_lengths)`` overrides the per-chunk matcher."""
-    device = resolve_device(device)
+    device = _call_device(mesh, device)
     n_total = len(templates)
     lazy = bool(n_total) and isinstance(templates[0], (str, os.PathLike))
 
@@ -115,7 +116,7 @@ def resumable_sweep(scenes, templates, params: fm.Dt3Params, searcher,
             return match_many(scene_list, chunk_templates, params, searcher,
                               optimizer, penalty=penalty,
                               template_lengths=chunk_lengths, top_k=top_k,
-                              device=device)
+                              device=device, mesh=mesh)
 
     lengths_all = None
     if template_lengths is not None:

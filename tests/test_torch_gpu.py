@@ -613,3 +613,58 @@ def test_budget_unchanged_by_the_allocator_cache():
     del x
     after = pipeline._budget(dev)
     assert abs(after - before) < (64 << 20) // 4
+
+
+def _two_scene_problem():
+    rng = np.random.default_rng(8)
+    base = rng.uniform(0, 60, (7, 4)).astype(np.float32)
+    templates = [base, base[:5] * np.float32(0.8)]
+    scenes = [np.concatenate([base + 20, rng.uniform(0, 100, (8, 4))]).astype(np.float32),
+              np.concatenate([base[:5] * 0.8 + 30, rng.uniform(0, 100, (8, 4))]).astype(np.float32),
+              np.concatenate([base + 9, rng.uniform(0, 100, (5, 4))]).astype(np.float32)]
+    return scenes, templates
+
+
+def test_scene_mesh_on_one_card_equals_unsharded():
+    """A ``("scene", 2)`` mesh of two ``cuda:0`` entries: the build is
+    bit-equal to the unsharded CUDA build and ``match_many`` returns its
+    rows exactly, with K1-K4 launched on the shards."""
+    from openfdcm_tpu_torch.parallel import make_mesh
+    scenes, templates = _two_scene_problem()
+    params = ot.Dt3Params(8, 5.0, 1.5, ot.Distance.L2)
+    mesh = make_mesh((2,), ("scene",), devices=[torch.device("cuda", 0)] * 2)
+    ref = ot.build_featuremap_batch(scenes, params, device="cuda")
+    before = (minplus.minplus_rows.launches, prop.propagate_orientation.launches,
+              integral.sweep_stack.launches, window.window_scores.launches)
+    sh = ot.build_featuremap_batch(scenes, params, mesh=mesh)
+    assert torch.equal(sh.dt3, ref.dt3)
+    args = (scenes, templates, params, ot.DefaultSearch(3, 5), ot.BatchOptimize(5))
+    kw = dict(penalty=ot.ExponentialPenalty(1.5), top_k=6)
+    got = ot.match_many(*args, mesh=mesh, **kw)
+    after = (minplus.minplus_rows.launches, prop.propagate_orientation.launches,
+             integral.sweep_stack.launches, window.window_scores.launches)
+    assert all(a >= b + 2 for a, b in zip(after, before))
+    want = ot.match_many(*args, device="cuda", **kw)
+    for g_list, w_list in zip(got, want):
+        assert len(g_list) == len(w_list) > 0
+        for g, w in zip(g_list, w_list):
+            assert (g.tmpl_idx, g.score) == (w.tmpl_idx, w.score)
+            np.testing.assert_array_equal(g.transform, w.transform)
+
+
+def test_row_mesh_on_one_card_equals_unsharded():
+    """A ``("rows", 2)`` spatial build on two ``cuda:0`` entries (K2 and K3
+    per row block) is bit-equal to the unsharded CUDA build."""
+    from openfdcm_tpu_torch.parallel import build_featuremap_spatial, make_mesh
+    scenes, _ = _two_scene_problem()
+    mesh = make_mesh((2,), ("rows",), devices=[torch.device("cuda", 0)] * 2)
+    for metric in (ot.Distance.L2, ot.Distance.L1):
+        params = ot.Dt3Params(8, 5.0, 1.5, metric)
+        ref = ot.build_featuremap(scenes[0], params, device="cuda")
+        before = (minplus.minplus_rows.launches, prop.propagate_orientation.launches)
+        sp = build_featuremap_spatial(scenes[0], params, mesh=mesh)
+        w, h = ref.feature_size
+        assert torch.equal(sp.dt3.gather()[:, :h, :w], ref.dt3[:, :h, :w])
+        assert prop.propagate_orientation.launches == before[1] + 2
+        if metric == ot.Distance.L2:
+            assert minplus.minplus_rows.launches == before[0] + 2

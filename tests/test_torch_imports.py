@@ -59,12 +59,20 @@ def test_every_module_and_export_leaves_jax_out():
                "'profiling', 'resumable_sweep', 'SweepState', 'MatcherService'}\n"
                "assert need <= set(ot.__all__), need - set(ot.__all__)\n"
                "for m in ('compat', 'serving', 'sweep', 'pose', 'viz', "
-               "'__main__', 'core.io', 'core.utils', 'core.errors'):\n"
+               "'__main__', 'core.io', 'core.utils', 'core.errors', "
+               "'parallel', 'parallel.mesh', 'parallel.sharded', "
+               "'parallel.distributed', 'parallel.bank', 'parallel.spatial'):\n"
+               "    importlib.import_module('openfdcm_tpu_torch.' + m)\n"
                "    assert 'openfdcm_tpu_torch.' + m in mods, m\n"
                "bad = [m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'jaxlib', 'openfdcm_tpu')]\n"
                "assert not bad, bad\n"
-               "assert len(mods) > 20, mods\n")
+               "assert len(mods) > 20, mods\n"
+               "par = {'make_mesh', 'pad_to_multiple', 'optimize_candidates_sharded', "
+               "'optimize_candidates_sharded_batch', 'topk_candidates', "
+               "'initialize', 'global_topk', 'build_featuremap_spatial', "
+               "'search_spatial', 'match_many_bank_sharded', 'prepare_bank_shards'}\n"
+               "assert par <= set(ot.parallel.__all__), par - set(ot.parallel.__all__)\n")
     assert res.returncode == 0, res.stderr
 
 

@@ -118,3 +118,20 @@ def test_service_needs_cuda_unless_given_cpu(monkeypatch):
     with MatcherService(bank, PARAMS, ot.DefaultSearch(4, 10),
                         ot.BatchOptimize(10), top_k=3, **DEV) as svc:
         assert svc.bank is bank
+
+
+def test_service_on_a_scene_mesh():
+    """``MatcherService(mesh=...)`` runs every batch on the mesh (four
+    ``cpu`` entries) and serves the direct unsharded rows."""
+    from openfdcm_tpu_torch.parallel import make_mesh
+    templates, scenes = _setup(n_scenes=5)
+    lengths = ot.get_template_lengths(templates)
+    kw = dict(top_k=4, penalty=ot.ExponentialPenalty(1.5), template_lengths=lengths)
+    mesh = make_mesh((4,), ("scene",), devices=[torch.device("cpu")] * 4)
+    with MatcherService(templates, PARAMS, ot.DefaultSearch(4, 10),
+                        ot.BatchOptimize(10), max_batch_delay_s=0.05,
+                        mesh=mesh, **kw) as svc:
+        assert svc.device == torch.device("cpu") and svc.mesh is mesh
+        served = [f.result(timeout=600) for f in [svc.submit(s) for s in scenes]]
+    assert assert_same_matches(served, _direct(scenes, templates, **kw),
+                               exact=True) > 0

@@ -134,3 +134,35 @@ def test_sweep_needs_cuda_unless_given_cpu(tmp_path, monkeypatch):
         resumable_sweep(scenes, templates, PARAMS, ot.DefaultSearch(4, 10),
                         ot.BatchOptimize(10), top_k=2,
                         state_dir=str(tmp_path / "s"))
+
+
+def test_sweep_on_a_scene_mesh(tmp_path, monkeypatch):
+    """``resumable_sweep(mesh=...)``, killed after its first chunk and
+    resumed, equals one unsharded ``match_many`` over the whole bank; its
+    checkpoint is the unsharded sweep's format."""
+    from openfdcm_tpu_torch import sweep
+    from openfdcm_tpu_torch.parallel import make_mesh
+    templates, scenes = _setup()
+    mesh = make_mesh((2,), ("scene",), devices=[torch.device("cpu")] * 2)
+    kwargs = _kwargs(templates, 4, tmp_path / "s", 4)
+    calls = []
+
+    class Boom(RuntimeError):
+        pass
+
+    def dying(*a, **kw):
+        calls.append(kw.get("mesh"))
+        if len(calls) == 2:
+            raise Boom()
+        return ot.match_many(*a, **kw)
+
+    with monkeypatch.context() as m:
+        m.setattr(sweep, "match_many", dying)
+        with pytest.raises(Boom):
+            resumable_sweep(scenes, templates, PARAMS, ot.DefaultSearch(4, 10),
+                            ot.BatchOptimize(10), mesh=mesh, **kwargs)
+    assert calls == [mesh, mesh]
+    assert SweepState.load(kwargs["state_dir"]).done_chunks == 1
+    swept = resumable_sweep(scenes, templates, PARAMS, ot.DefaultSearch(4, 10),
+                            ot.BatchOptimize(10), mesh=mesh, **kwargs)
+    assert assert_same_matches(swept, _full(scenes, templates, 4), exact=True) > 0
