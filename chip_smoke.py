@@ -111,7 +111,26 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
    ``build_featuremap_spatial`` bit-equal, ``search_spatial`` equal to
    ``search``; 26 ``MatcherService(mesh=)`` and a killed and resumed
    ``resumable_sweep(mesh=)`` equal to phase 14's rows; 27 ``global_topk``
-   equal to ``topk_candidates``.
+   equal to ``topk_candidates``;
+28. native: the 460 line files of phase 13 through the native runtime's
+   ``read_batch`` (8 threads) equal to the plain reader file by file, a
+   native write -> read round trip exact, DefaultSearch pairs of every
+   template of the whole bank against every scene equal to the plain ones,
+   native and plain walls;
+29. core API: ``distance_transform`` (L1, L2, L2²) of bank 0's scene 0 on
+   640 x 640 and of a seeded 1920 x 1080 scene of 400 lines, bit-equal to
+   the CPU with one K2 launch per L2/L2² call; ``line_integral`` of the 30
+   DT3 angles over the 640² DT and of 4 edge angles over the 1920 x 1080
+   one, each bit-equal to the CPU with one K4 launch and its input
+   unchanged; ``closest_orientation_idx`` on 1M thetas (NaN among them)
+   identical to the CPU; ``propagate_orientation(dt3, wmat)`` on scene 0's
+   30 x 640² per-orientation DTs bit-equal to the CPU, its largest
+   difference from K3's relaxation printed; walls per call;
+30. optimize API: ``optimize_candidates`` on bank-0 scene 0's 8,448
+   candidates under Default, Indulgent, Batch(10) and DenseOptimize at
+   generation 4 and DefaultOptimize under generations 2 and 3, each run's
+   valid rows equal to ``search``'s for the scene bit for bit, with K1, K5
+   or K6 launched under its generation; walls.
 
 Phase 3 also holds one dense 64-lane K1 call against the plain version,
 and phase 4 adds DenseOptimize and the host ranking path; every CUDA
@@ -488,13 +507,13 @@ def build_memory(scenes, params, device):
             at[name] = (torch.cuda.max_memory_allocated() - base) / 1e6
             return fn(*args, **kw)
         return wrapped
-    saved = dt_mod.minplus_rows, fm_mod.propagate_orientation
+    saved = dt_mod.minplus_rows, fm_mod.k3_relax
     dt_mod.minplus_rows = peak_at("K2", saved[0])
-    fm_mod.propagate_orientation = peak_at("K3", saved[1])
+    fm_mod.k3_relax = peak_at("K3", saved[1])
     try:
         fmb = of.build_featuremap_batch(scenes, params, device=device)
     finally:
-        dt_mod.minplus_rows, fm_mod.propagate_orientation = saved
+        dt_mod.minplus_rows, fm_mod.k3_relax = saved
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     held = torch.cuda.memory_allocated() - base
@@ -516,7 +535,7 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
     kernels on CPU copies), and time both on the card."""
     templates, scenes, _ = banks[0]
     with Recorder({"K2_minplus_rows": (dt_mod, "minplus_rows"),
-                   "K3_propagate_orientation": (fm_mod, "propagate_orientation"),
+                   "K3_propagate_orientation": (fm_mod, "k3_relax"),
                    "K4_sweep_stack": (integral_mod, "sweep_stack")}) as build_rec:
         of.build_featuremap_batch(scenes, params, device=device)
     build_memory(scenes, params, device)
@@ -1102,7 +1121,7 @@ def phase_single_scene(banks, params, searcher, penalty, device, batch_ref):
 
     scene = scenes[0]
     with Recorder({"K2_minplus_rows": (dt_mod, "minplus_rows"),
-                   "K3_propagate_orientation": (fm_mod, "propagate_orientation"),
+                   "K3_propagate_orientation": (fm_mod, "k3_relax"),
                    "K4_sweep_stack": (integral_mod, "sweep_stack")}) as rec:
         fm = of.build_featuremap(scene, params, pad_to=None, device=device)
     ref = of.build_featuremap(scene, params, pad_to=None, device="cpu")
@@ -2055,6 +2074,204 @@ def phase_mesh_global_topk(scores, valid, device):
               wall_u, launches)
 
 
+# ---------------------------------------------------------------------------
+# the rest of the JAX package's surface
+# ---------------------------------------------------------------------------
+
+def photo_scene(seed, n=400, w=1920, h=1080):
+    """A synthetic photographed scene made from ``seed``: ``n`` lines of
+    10-200 px at random angles centred on a ``w x h`` canvas."""
+    rng = np.random.default_rng([seed, w, h])
+    c = rng.uniform(0, 1, (n, 2)) * (w, h)
+    ang = rng.uniform(0, np.pi, n)
+    half = rng.uniform(10.0, 200.0, n)[:, None] / 2
+    d = np.stack([np.cos(ang), np.sin(ang)], -1) * half
+    return np.concatenate([c - d, c + d], -1).astype(np.float32)
+
+
+def wall_of(fn):
+    """``(result, wall s)`` of ``fn()``, the card synchronized."""
+    sync_cards()
+    t0 = time.perf_counter()
+    out = fn()
+    sync_cards()
+    return out, time.perf_counter() - t0
+
+
+def phase_core_api(banks, device, seed):
+    """The single-image API on the card against the CPU, bit for bit:
+    ``distance_transform`` (L1, L2, L2²; one K2 launch per L2/L2² call) of
+    bank 0's scene 0 on 640 x 640 and of a 1920 x 1080 scene of 400 lines;
+    ``line_integral`` (one K4 launch each, the input unchanged) of the 30
+    DT3 angles over the 640² L2 DT and of 4 edge angles over the 1920 x 1080
+    one; ``closest_orientation_idx`` on 1M thetas; ``propagate_orientation
+    (dt3, wmat)`` on scene 0's 30 x 640² per-orientation DTs, with its
+    largest difference from K3's relaxation printed."""
+    from openfdcm_tpu_torch.core import dt as core_dt
+    from openfdcm_tpu_torch.core import integral as core_integral
+    scenes = {"640x640": (banks[0][1][0], (640, 640)),
+              "1920x1080": (photo_scene(seed), (1920, 1080))}
+    dts = {}
+    for label, (lines, size) in scenes.items():
+        for metric in (of.Distance.L1, of.Distance.L2, of.Distance.L2_SQUARED):
+            got, wall, launches = timed(lambda: core_dt.distance_transform(
+                lines, size, metric, device=device))
+            k2 = int(metric != of.Distance.L1)
+            check(launches["K2_minplus_rows"] == k2,
+                  f"core-api: distance_transform {label} {metric.name} launched "
+                  f"K2 {launches['K2_minplus_rows']} times, not {k2}")
+            want, wall_cpu = wall_of(lambda: core_dt.distance_transform(
+                lines, size, metric, device="cpu"))
+            n_bad = mismatches(got, want)
+            check(got.shape == (size[1], size[0]) and n_bad == 0,
+                  f"core-api: distance_transform {label} {metric.name}: "
+                  f"{n_bad} pixels differ from the CPU")
+            print(f"[core-api] distance_transform {label} {metric.name}: "
+                  f"{len(lines)} lines, bit-equal to the CPU, {wall * 1e3:.3f} ms "
+                  f"(CPU {wall_cpu * 1e3:.3f} ms), K2 launches {k2}")
+            if metric == of.Distance.L2:
+                dts[label] = got
+        rows, wall = profiled(lambda: core_dt.distance_transform(
+            lines, size, of.Distance.L2, device=device))
+        busy = sum(r[2] for r in rows)
+        top = ", ".join(f"{n[:40]} {c}x {ms:.3f} ms" for n, c, ms in rows[:4])
+        print(f"[core-api] profile distance_transform {label} L2: wall "
+              f"{wall * 1e3:.3f} ms, device busy {busy:.3f} ms over "
+              f"{sum(r[1] for r in rows)} kernel launches; top: {top}")
+    angle_sets = {"640x640": [float(a) for a in fm_mod.make_angles(30)],
+                  "1920x1080": [0.0, np.pi / 2, -np.pi / 2, np.pi / 2 - 1e-6]}
+    for label, angles in angle_sets.items():
+        img = dts[label]
+        before, host = img.clone(), img.cpu()
+        walls, n_k4 = [], 0
+        for angle in angles:
+            got, wall, launches = timed(lambda: core_integral.line_integral(img, angle))
+            n_k4 += launches["K4_sweep_stack"]
+            walls.append(wall)
+            n_bad = mismatches(got, core_integral.line_integral(host, angle))
+            check(n_bad == 0, f"core-api: line_integral {label} at {angle}: "
+                  f"{n_bad} cells differ from the CPU")
+        check(n_k4 == len(angles), f"core-api: {n_k4} K4 launches for "
+              f"{len(angles)} line integrals")
+        check(mismatches(img, before) == 0, "core-api: line_integral changed its input")
+        print(f"[core-api] line_integral {label}: {len(angles)} angles, each "
+              f"bit-equal to the CPU, input unchanged, K4 launches {n_k4}, wall "
+              f"{np.median(walls) * 1e3:.3f} ms median, {max(walls) * 1e3:.3f} ms max")
+    angles = fm_mod.make_angles(30)
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(-2 * np.pi, 2 * np.pi, 1_000_000).astype(np.float32)
+    theta[::1000] = np.nan
+    theta[1::1000] = np.repeat(angles, 34)[:1000]
+    dev_theta = torch.as_tensor(theta, device=device)
+    got, wall = wall_of(lambda: fm_mod.closest_orientation_idx(angles, dev_theta))
+    n_bad = mismatches(got, fm_mod.closest_orientation_idx(angles, torch.as_tensor(theta)))
+    check(n_bad == 0, f"core-api: closest_orientation_idx: {n_bad} indices differ")
+    print(f"[core-api] closest_orientation_idx: {theta.size} thetas "
+          f"({int(np.isnan(theta).sum())} NaN), identical to the CPU, "
+          f"{wall * 1e3:.3f} ms")
+    lines, size = scenes["640x640"]
+    slice_of = fm_mod.classify_lines(angles, torch.as_tensor(lines)).numpy()
+    dt3 = torch.stack([core_dt.distance_transform(lines[slice_of == j], size,
+                                                  device=device)
+                       for j in range(len(angles))])
+    wmat = fm_mod.propagation_weights(angles, 5.0)
+    got, wall = wall_of(lambda: fm_mod.propagate_orientation(dt3, wmat))
+    n_bad = mismatches(got, fm_mod.propagate_orientation(dt3.cpu(), wmat))
+    check(n_bad == 0, f"core-api: propagate_orientation: {n_bad} cells differ")
+    relax = fm_mod.propagate_orientation_relax(
+        dt3.clone(), fm_mod.propagation_steps(angles, 5.0))
+    print(f"[core-api] propagate_orientation(dt3, wmat) on {tuple(dt3.shape)}: "
+          f"bit-equal to the CPU, {wall * 1e3:.3f} ms; largest difference from "
+          f"K3's relaxation {max_abs_err(got, relax):.6g} "
+          f"({mismatches(got, relax)} cells differ)")
+
+
+def phase_optimize_api(banks, params, searcher, device):
+    """``optimize_candidates`` on bank-0 scene 0's candidates (every pair
+    of the bank padded to a multiple of 64, both polarities) under
+    DefaultOptimize, IndulgentOptimize, BatchOptimize(10) and DenseOptimize
+    at generation 4, and DefaultOptimize under generations 2 and 3: per run
+    the valid rows (template, score, transform) equal ``search``'s for the
+    scene bit for bit, and the generation's window kernel is launched."""
+    from openfdcm_tpu_torch.matching.match import _bucket, _scene_candidates
+    templates, scenes, _ = banks[0]
+    bank, _ = make_bank(templates, device)
+    fm = of.build_featuremap(scenes[0], params, device=device)
+    pairs = pipeline_mod._bank_pairs_for_scene(searcher, bank, scenes[0])
+    lines, mask, align, transforms, _ = _scene_candidates(
+        bank, pairs, scenes[0], _bucket(pairs.shape[0], 64))
+    w, h = fm.feature_size
+    runs = [(4, of.DefaultOptimize()), (4, of.IndulgentOptimize()),
+            (4, of.BatchOptimize(10)), (4, of.DenseOptimize()),
+            (2, of.DefaultOptimize()), (3, of.DefaultOptimize())]
+    for version, optimizer in runs:
+        mode, window = opt_mod.optimizer_mode(optimizer)
+        with generation(version):
+            out, wall, launches = timed(lambda: opt_mod.optimize_candidates(
+                fm.dt3.reshape(-1), fm.angles, fm.scene_translation,
+                fm.dt3.shape[1:], np.float32([w, h]), lines, mask, align,
+                mode=mode, window=max(window, 1),
+                dense_steps=opt_mod.dense_step_count(optimizer, max(w, h))))
+            want, wall_search, _ = timed(lambda: of.search(
+                of.DefaultMatch(), searcher, optimizer, fm, bank, scenes[0]))
+        kernel = "K1_window_scores" if mode == "dense" else WINDOW_KERNEL[version]
+        check_launched(launches, (kernel, "K1_tile_stack"),
+                       f"optimize-api {type(optimizer).__name__} gen {version}")
+        scores, trans, valid = (x.cpu().numpy() for x in out)
+        mats = transforms.cpu().numpy().copy()
+        mats[..., 2] += trans
+        got = [of.Match(int(pairs[j // 2, 0]), float(scores[j]), mats[j])
+               for j in range(2 * pairs.shape[0]) if valid[j]]
+        n = same_lists([[got]], [[want]], f"optimize-api {type(optimizer).__name__} "
+                       f"gen {version} vs search")
+        print(f"[optimize-api] {type(optimizer).__name__}, generation {version}: "
+              f"{lines.shape[0]} candidates, {n} valid rows equal search's, "
+              f"{wall * 1e3:.3f} ms (search {wall_search * 1e3:.3f} ms); "
+              f"launches {short(launches)}")
+
+
+def phase_native(banks, root, tmpl_paths, scene_paths):
+    """The native runtime against its plain versions: the 460 line files
+    through ``read_batch`` on 8 threads, file by file; each written again
+    with the native codec and read back by both; DefaultSearch pairs of
+    every template of the whole bank against every scene."""
+    from openfdcm_tpu_torch import native
+    from openfdcm_tpu_torch.matching import search as search_mod
+    paths = tmpl_paths + scene_paths
+    got, wall = wall_of(lambda: of.io.read_batch(paths, num_threads=8))
+    want, wall_plain = wall_of(lambda: of.io.read_batch_plain(paths, num_threads=8))
+    check(all(a.tobytes() == b.tobytes() for a, b in zip(got, want, strict=True)),
+          "native: read_batch differs from the plain reader")
+    out_dir = os.path.join(root, "native_round_trip")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    for i, arr in enumerate(got):
+        of.io.write(os.path.join(out_dir, f"{i:03d}.lines"), arr)
+    wrote = time.perf_counter() - t0
+    for i, arr in enumerate(got):
+        path = os.path.join(out_dir, f"{i:03d}.lines")
+        check(of.read(path).tobytes() == arr.tobytes()
+              == of.io.read_plain(path).tobytes(), f"native: {path} round trip")
+    print(f"[native] {len(paths)} line files: read_batch (8 threads) "
+          f"{wall * 1e3:.3f} ms, plain (8 threads) {wall_plain * 1e3:.3f} ms, equal "
+          f"file by file; native write {wrote * 1e3:.3f} ms, round trip exact "
+          f"through both readers")
+    templates, scenes, _ = whole_bank(banks)
+    t_len = [search_mod._lengths(t) for t in templates]
+    s_len = [search_mod._lengths(s) for s in scenes]
+    calls = [(t, s, np.arange(s.size)) for s in s_len for t in t_len]
+    nat, wall = wall_of(lambda: [search_mod._pair_by_length(t, s, i, 4, 10)
+                                 for t, s, i in calls])
+    plain, wall_plain = wall_of(lambda: [search_mod._pair_by_length_plain(
+        t, s, i, 4, 10) for t, s, i in calls])
+    check(all(np.array_equal(a, b) for a, b in zip(nat, plain, strict=True)),
+          "native: DefaultSearch pairs differ from the plain ones")
+    print(f"[native] DefaultSearch(4, 10) pairs of {len(templates)} templates x "
+          f"{len(scenes)} scenes ({sum(len(p) for p in nat)} pairs): native "
+          f"{wall * 1e3:.3f} ms, plain {wall_plain * 1e3:.3f} ms, equal; library "
+          f"{native.library_path().name}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2095,9 +2312,12 @@ def main(argv=None) -> int:
             phase_mesh_serving_sweep(banks, *cfg, ref, serve_wall, sweep_wall,
                                      tmpl_paths, root)
             phase_mesh_global_topk(scores, valid, device)
+            phase_native(banks, root, tmpl_paths, scene_paths)
         phase_pose(banks, *cfg, args.seed)
         phase_compat(device)
         phase_profile_serving(banks, *cfg)
+    phase_core_api(banks, device, args.seed)
+    phase_optimize_api(banks, params, searcher, device)
     # each kernel's count from the run of the path it serves
     launches["K5_window_v2"] = by_gen[2]["K5_window_v2"]
     launches["K6_window_v3"] = by_gen[3]["K6_window_v3"]

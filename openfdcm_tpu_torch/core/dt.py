@@ -12,13 +12,20 @@ Separable and exact, as in the JAX package:
 Every intermediate is an integer below 2^24 or ``F32_MAX``/``inf``, so all
 results are exact.  An empty seed set gives ``F32_MAX`` everywhere
 (``imgproc.h:174``).
+
+:func:`distance_transform` is the reference's single-image
+``distanceTransform`` (``imgproc.h:169-194``) on this machinery: the scene
+batch's DT3 build runs the same passes on its whole stack.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.minplus import minplus_rows
-from .types import Distance, F32_MAX
+from . import draw
+from . import geometry as geo
+from .types import Distance, F32_MAX, resolve_device
 
 
 def _nearest_1d_l1(f: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -76,3 +83,49 @@ def dt_from_indicator(ind: torch.Tensor, *, metric: Distance) -> torch.Tensor:
     """Exact DT of a seed-indicator image ``(..., H, W)``: 0 at seed pixels,
     ``F32_MAX`` elsewhere."""
     return row_pass(_nearest_1d_l1(ind, dim=-2), metric=metric)
+
+
+def indicator_from_points(points: torch.Tensor, mask: torch.Tensor, height: int,
+                          width: int) -> torch.Tensor:
+    """Seed-indicator image ``(height, width)`` from integer seed pixels
+    ``points (S, 2)`` ``(x, y)`` with validity ``mask (S,)``, on their
+    device: 0.0 at each valid seed, ``F32_MAX`` elsewhere.  Seeds land as
+    the JAX package's drop-mode scatter places them: invalid seeds are
+    dropped, indices in ``[-size, -1]`` wrap and the other out-of-range ones
+    are dropped.  The mask is applied before the write: an out-of-range
+    index on the card is a device assert."""
+    x = points[..., 0].reshape(-1).to(torch.int64)
+    y = points[..., 1].reshape(-1).to(torch.int64)
+    keep = (mask.reshape(-1) & (x >= -width) & (x < width)
+            & (y >= -height) & (y < height))
+    ind = torch.full((height, width), F32_MAX, dtype=torch.float32,
+                     device=points.device)
+    ind[y[keep] % height, x[keep] % width] = 0.0
+    return ind
+
+
+def distance_from_seeds(points: torch.Tensor, mask: torch.Tensor, *,
+                        height: int, width: int, metric: Distance) -> torch.Tensor:
+    """Exact DT image ``(height, width)`` of integer seed pixels ``points
+    (S, 2)`` ``(x, y)`` with validity ``mask (S,)``, on their device (K2
+    for L2 and L2² on the card).  No valid seed: ``F32_MAX`` everywhere."""
+    return dt_from_indicator(indicator_from_points(points, mask, height, width),
+                             metric=metric)
+
+
+def distance_transform(lines, size, metric: Distance = Distance.L2,
+                       max_points: int | None = None, device="cuda") -> torch.Tensor:
+    """DT of a line set on a ``(W, H) = size`` canvas (the reference's
+    ``Size`` convention), on ``device``: each line clipped to the canvas and
+    rasterized to at most ``max_points`` seeds (default ``hypot(W, H) + 2``),
+    then :func:`distance_from_seeds`.  Reference ``imgproc.h:169-194``.  An
+    empty line set gives ``F32_MAX`` everywhere."""
+    device = resolve_device(device)
+    lines = geo.as_lines(lines, device).to(device)
+    w, h = int(size[0]), int(size[1])
+    if lines.shape[0] == 0:
+        return torch.full((h, w), F32_MAX, dtype=torch.float32, device=device)
+    if max_points is None:
+        max_points = int(np.hypot(w, h)) + 2
+    pts, mask = draw.seed_points(lines, h, w, max_points)
+    return distance_from_seeds(pts, mask, height=h, width=w, metric=metric)

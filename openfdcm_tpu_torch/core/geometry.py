@@ -110,6 +110,31 @@ def pow_f32(x: torch.Tensor, tau: float) -> torch.Tensor:
     return torch.pow(x.double(), float(np.float32(tau))).float()
 
 
+def div_cr(a, b, device="cuda") -> torch.Tensor:
+    """Correctly rounded f32 division ``a / b``, the same bits on every
+    device.  Tensors keep their device; host data goes to ``device`` (``b``
+    to ``a``'s).
+
+    The JAX package's ``div_cr`` corrects its backend's quotient by a search
+    over the neighbouring floats with exact Dekker residuals, because the
+    TPU divides by a reciprocal and Newton steps (1 ulp off on about a third
+    of its inputs).  That search is not needed here: the CPU's and CUDA's
+    f32 ``/`` are IEEE-rounded (PyTorch builds its CUDA kernels without
+    fast math), so the plain quotient is already the one the search picks
+    (``chip_smoke.phase_ieee`` holds the card's against numpy)."""
+    a = _f32(a, device)
+    return a / _f32(b, a.device)
+
+
+def sqrt_cr(x, device="cuda") -> torch.Tensor:
+    """Correctly rounded f32 square root, the same bits on every device:
+    :func:`sqrt_f32`.  The JAX package's ``sqrt_cr`` runs the residual
+    search of :func:`div_cr` over the TPU's approximate root; here the f64
+    root rounded to f32 is already the correctly rounded one (the vectorized
+    f32 ``torch.sqrt`` on the CPU is not: see :func:`sqrt_f32`)."""
+    return sqrt_f32(_f32(x, device))
+
+
 def p1(lines: torch.Tensor) -> torch.Tensor:
     """First endpoint, ``(..., 2)``.  Reference ``core/math.h:282``."""
     return lines[..., 0:2]

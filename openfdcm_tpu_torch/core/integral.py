@@ -4,10 +4,12 @@ Each DT3 slice is prefix-summed along its own angle: sweeping the major
 axis, each position adds the previous carry shifted by
 ``delta_i = round(i*r) - round((i-1)*r)`` rows (reference
 ``core/imgproc.h:38-84``).  The sweep runs on kernel K4
-(:mod:`openfdcm_tpu_torch.ops.integral`), one launch for the whole stack,
-in place.  Physical canvases may be padded beyond each scene's logical
-region; padded cells are zero and the sweep geometry keeps the logical
-region reference-exact.
+(:mod:`openfdcm_tpu_torch.ops.integral`), one launch for a whole scene
+batch, in place (:func:`line_integral_stack_batch_`, the DT3 build's);
+:func:`line_integral_stack` and :func:`line_integral` take the JAX
+package's arguments and return a new tensor.  Physical canvases may be
+padded beyond each scene's logical region; padded cells are zero and the
+sweep geometry keeps the logical region reference-exact.
 """
 from __future__ import annotations
 
@@ -93,7 +95,7 @@ def sweep_groups(angles, logical_hw, phys_h: int, phys_w: int):
     return groups
 
 
-def line_integral_stack(imgs: torch.Tensor, angles, logical_hw) -> torch.Tensor:
+def line_integral_stack_batch_(imgs: torch.Tensor, angles, logical_hw) -> torch.Tensor:
     """Line integrals of a scene batch ``(S, D, PH, PW)``, one static angle
     per slice, computed in place (one K4 launch); returns ``imgs``.
     ``logical_hw``: host ``(S, 2)`` ints ``(H, W)``; each scene's padding
@@ -101,3 +103,27 @@ def line_integral_stack(imgs: torch.Tensor, angles, logical_hw) -> torch.Tensor:
     _, _, ph, pw = imgs.shape
     deltas, table = sweep_tables(angles, logical_hw, ph, pw)
     return sweep_stack(imgs, deltas, table)
+
+
+def line_integral_stack(imgs: torch.Tensor, angles, logical_hw=None) -> torch.Tensor:
+    """Line integrals of a ``(D, PH, PW)`` stack, one static angle per
+    slice, as a new tensor (``imgs`` is left as it is).  ``logical_hw``:
+    ``(H, W)``, default ``(PH, PW)``; the padding beyond it must be zero and
+    stays out of the reference-exact index pattern."""
+    d, ph, pw = imgs.shape
+    if len(angles) != d:
+        raise ValueError(f"{len(angles)} angles for {d} slices")
+    if logical_hw is None:
+        logical_hw = (ph, pw)
+    if torch.is_tensor(logical_hw):
+        logical_hw = logical_hw.cpu()
+    lhw = np.asarray(logical_hw, np.int64).reshape(1, 2)
+    out = imgs.to(torch.float32, copy=True).contiguous()
+    return line_integral_stack_batch_(out[None], angles, lhw)[0]
+
+
+def line_integral(img: torch.Tensor, angle: float) -> torch.Tensor:
+    """Line integral of one image ``(H, W)`` along ``angle``, as a new
+    tensor (K4 on the card).  Reference ``imgproc.h:38-84``."""
+    h, w = img.shape
+    return line_integral_stack(img[None], [angle], (h, w))[0]

@@ -23,7 +23,7 @@ from ..core import draw
 from ..core import geometry as geo
 from ..core.rasterize import to_int_trunc
 from ..core.types import Distance, F32_MAX, resolve_device
-from ..ops.prop import propagate_orientation
+from ..ops.prop import propagate_orientation as k3_relax
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,18 +207,95 @@ def orientation_ratio_splits(depth: int):
     return tuple(float(s) for s in splits), float(wrap)
 
 
-def classify_lines(depth: int, lines: torch.Tensor) -> torch.Tensor:
-    """Orientation-slice index per line (``(..., 4)`` -> ``(...)`` int64):
-    nearest-angle semantics of ``theta = atan(dy/dx)`` evaluated in ratio
-    space (``r = dy/dx``: ``sum(r >= splits)``, ``r >= wrap -> 0``,
-    ``NaN -> depth-1``)."""
+def closest_orientation_idx(angles, theta) -> torch.Tensor:
+    """Index (int32) of the nearest angle of the ascending table ``angles``
+    for each ``theta``, by the reference's ``std::map`` search
+    (``dt3cpu.h:93-114``): an interior theta takes the closer of its two
+    bracketing angles (ties to the upper); a theta beyond either end
+    compares its circular distance to the first and the last angle (ties and
+    NaN to the last).  The bracket is a compare-count over the small table,
+    its angles gathered at clamped indices; no ``atan``.  On ``theta``'s
+    device when it is a tensor, else on ``angles``'."""
+    dev = theta.device if torch.is_tensor(theta) else (
+        angles.device if torch.is_tensor(angles) else None)
+    angles = torch.as_tensor(angles, dtype=torch.float32, device=dev)
+    theta = torch.as_tensor(theta, dtype=torch.float32, device=dev)
+    d = angles.shape[0]
+    u = (angles <= theta[..., None]).sum(dim=-1)        # searchsorted 'right'
+    interior = (u > 0) & (u < d)
+    lo = torch.clamp(u - 1, 0, d - 1)
+    hi = torch.clamp(u, 0, d - 1)
+    pick_lo = (theta - angles[lo]).abs() < (theta - angles[hi]).abs()
+    interior_idx = torch.where(pick_lo, lo, hi)
+    a1 = theta - angles[0]
+    a2 = theta - angles[d - 1]
+    pick_first = (torch.minimum(a1, (a1 - math.pi).abs())
+                  < torch.minimum(a2, (a2 - math.pi).abs()))
+    boundary_idx = torch.where(pick_first, 0, d - 1)
+    return torch.where(interior, interior_idx, boundary_idx).to(torch.int32)
+
+
+def classify_lines(angles, lines: torch.Tensor) -> torch.Tensor:
+    """Orientation-slice index per line (``(..., 4)`` -> ``(...)`` int32,
+    as in the JAX package): nearest-angle semantics of ``theta =
+    atan(dy/dx)`` evaluated in ratio space (``r = dy/dx``: ``sum(r >=
+    splits)``, ``r >= wrap -> 0``, ``NaN -> depth-1``).  ``angles`` is the
+    standard table ``make_angles(depth)``; only its length is read."""
+    depth = len(angles)
     splits, wrap = orientation_ratio_splits(depth)
     sp = torch.tensor(splits, dtype=torch.float32, device=lines.device)
     d = lines[..., 2:4] - lines[..., 0:2]
     r = d[..., 1] / d[..., 0]
-    idx = (r[..., None] >= sp).sum(dim=-1)
-    idx = torch.where(r >= wrap, torch.zeros_like(idx), idx)
-    return torch.where(torch.isnan(r), torch.full_like(idx, depth - 1), idx)
+    idx = (r[..., None] >= sp).sum(dim=-1, dtype=torch.int32)
+    idx = torch.where(r >= wrap, 0, idx)
+    return torch.where(torch.isnan(r), depth - 1, idx).to(torch.int32)
+
+
+def propagation_weights(angles, coeff: float) -> np.ndarray:
+    """Closed-form circular propagation weights ``Wmat[src, dst]`` (host
+    numpy f32, copied from the JAX package): the min-plus closure of the
+    reference's 1.5-cycle forward and backward relaxation
+    (``dt3cpu.cpp:77-107``) over the cyclic slice graph with adjacent
+    weights ``coeff * min(|da|, |da - pi|)``, the cheaper of the clockwise
+    and counter-clockwise step sums, each accumulated in order in f32."""
+    m = len(angles)
+    a = np.asarray(angles, np.float32)
+    step_fwd = np.empty(m, np.float32)  # weight of edge j -> (j+1) % m
+    for j in range(m):
+        h = np.abs(np.float32(a[j]) - np.float32(a[(j + 1) % m]))
+        step_fwd[j] = np.float32(coeff) * np.minimum(h, np.abs(h - np.float32(math.pi)))
+    wmat = np.zeros((m, m), np.float32)
+    for src in range(m):
+        cw = np.float32(0)
+        cws = np.zeros(m, np.float32)
+        for k in range(1, m):
+            cw = np.float32(cw + step_fwd[(src + k - 1) % m])
+            cws[(src + k) % m] = cw
+        ccw = np.float32(0)
+        ccws = np.zeros(m, np.float32)
+        for k in range(1, m):
+            ccw = np.float32(ccw + step_fwd[(src - k) % m])
+            ccws[(src - k) % m] = ccw
+        full = np.minimum(cws, ccws)
+        full[src] = 0.0
+        wmat[src] = full
+    return wmat
+
+
+def propagate_orientation(dt3: torch.Tensor, wmat) -> torch.Tensor:
+    """Min-plus propagation across the orientation axis of ``dt3 (m, H,
+    W)``: ``out[s] = min_src dt3[src] + wmat[src, s]``, a new tensor.  As
+    the JAX package's scan over sources, a running elementwise minimum in
+    one ``(m, H, W)`` carry (the adds and minima are exact, so their order
+    does not change a bit).  Plain torch: the JAX package's version is an
+    XLA scan, not a Pallas kernel."""
+    w = torch.as_tensor(wmat, dtype=torch.float32, device=dt3.device)
+    m = dt3.shape[0]
+    out = torch.full_like(dt3, float("inf"))
+    for src in range(m):
+        for dst in range(m):
+            torch.minimum(out[dst], dt3[src] + w[src, dst], out=out[dst])
+    return out
 
 
 def propagation_steps(angles, coeff: float):
@@ -249,7 +326,7 @@ def propagation_steps(angles, coeff: float):
 def propagate_orientation_relax(dt3: torch.Tensor, steps) -> torch.Tensor:
     """Reference-order sequential relaxation across the orientation axis of
     ``dt3 (..., D, H, W)`` — kernel K3, in place: returns ``dt3``."""
-    return propagate_orientation(dt3, steps)
+    return k3_relax(dt3, steps)
 
 
 def _indicator_batch(lines, line_mask, logical_hw, *, depth, phys_h, phys_w,
@@ -261,7 +338,7 @@ def _indicator_batch(lines, line_mask, logical_hw, *, depth, phys_h, phys_w,
     tensors.  Seeds outside the stack are dropped, as the JAX package's
     drop-mode scatter drops them."""
     s = lines.shape[0]
-    slice_of_line = classify_lines(depth, lines)                    # (S, N)
+    slice_of_line = classify_lines(make_angles(depth), lines).to(torch.int64)
     lhw = logical_hw.to(torch.float32)
     zero = torch.zeros_like(lhw[:, 0])
     box = torch.stack([zero, lhw[:, 1] - 1.0, zero, lhw[:, 0] - 1.0], dim=-1)
@@ -385,7 +462,7 @@ def evaluate(featuremap: Dt3Featuremap, templates, translations):
     if not pairs:
         return []
     dev = featuremap.dt3.device
-    d, ph, pw = featuremap.dt3.shape
+    _, ph, pw = featuremap.dt3.shape
     tmpls = [geo.as_lines_np(t) for t, _ in pairs]
     trs_np = [np.asarray(tr, np.float32).reshape(-1, 2) for _, tr in pairs]
     n = len(tmpls)
@@ -400,7 +477,8 @@ def evaluate(featuremap: Dt3Featuremap, templates, translations):
         trs[i, : tr.shape[0]] = tr
     lines_d = torch.as_tensor(lines, device=dev)
     scores = evaluate_batched(
-        featuremap.dt3.reshape(-1), (ph, pw), classify_lines(d, lines_d),
+        featuremap.dt3.reshape(-1), (ph, pw),
+        classify_lines(featuremap.angles, lines_d),
         lines_d.reshape(n, lmax, 2, 2), torch.as_tensor(mask, device=dev),
         torch.as_tensor(trs, device=dev) + featuremap.scene_translation)
     scores = scores.cpu().numpy()

@@ -57,6 +57,9 @@ class DenseOptimize:
     max_steps: int | None = None   # None: bound by the canvas extent
 
 
+OptimizerLike = (DefaultOptimize, IndulgentOptimize, BatchOptimize, DenseOptimize)
+
+
 def optimizer_mode(optimizer) -> tuple[str, int]:
     """(mode, window) for a strategy config."""
     if isinstance(optimizer, DenseOptimize):
@@ -84,38 +87,73 @@ def dense_step_count(optimizer, max_wh: int) -> int:
     return -(-max(steps, 1) // 64) * 64
 
 
+def optimize_candidates(dt3_flat, angles, scene_tr, hw, feature_size,
+                        tmpl_lines, line_mask, align_vecs, *, mode: str,
+                        window: int, dense_steps: int, take_fn=None):
+    """Optimize the aligned candidates of one scene at once, on the stack's
+    device (JAX ``optimize.optimize_candidates``).
+
+    ``dt3_flat``: the scene's flattened ``(D, *hw)`` LI stack; ``angles``
+    ``(D,)``; ``scene_tr`` and ``feature_size`` (the logical ``(w, h)``)
+    ``(2,)``; ``tmpl_lines (C, L, 4)`` aligned templates, ``line_mask (C,
+    L)``, ``align_vecs (C, 2)`` raw alignment vectors; ``mode``, ``window``
+    and ``dense_steps`` as :func:`optimizer_mode` and
+    :func:`dense_step_count` give them.  A null alignment vector or a
+    template already outside the canvas gives ``valid = False``.  Runs
+    :func:`~.optimize_kernel.optimize_candidates_batch_kernel` on a batch of
+    one scene: the window kernel of its generation (K1, K5 or K6) on the
+    tiled copy, and K1 for the walks and the dense sweep.
+
+    ``take_fn``: the JAX package's gather hook, through which its
+    row-sharded search reads the stack.  The port's row-sharded search
+    reads its blocks its own way (:mod:`~openfdcm_tpu_torch.parallel.spatial`),
+    so only ``None`` is accepted.
+
+    Returns ``(scores (C,), translations (C, 2), valid (C,))``."""
+    from .optimize_kernel import optimize_candidates_batch_kernel
+    if take_fn is not None:
+        raise TypeError("optimize_candidates: take_fn is not supported; the "
+                        "row-sharded search is parallel.search_spatial")
+    dev = dt3_flat.device
+    as_dev = lambda x, dtype=torch.float32: torch.as_tensor(x, dtype=dtype,
+                                                            device=dev)
+    out = optimize_candidates_batch_kernel(
+        dt3_flat.reshape(1, -1, *hw), as_dev(angles),
+        as_dev(scene_tr).reshape(1, 2), as_dev(feature_size).reshape(1, 2),
+        as_dev(tmpl_lines)[None], as_dev(line_mask, torch.bool)[None],
+        as_dev(align_vecs)[None], mode=mode, window=window,
+        dense_steps=dense_steps)
+    return tuple(x[0] for x in out)
+
+
 def optimize(optimizer, templates, alignments, featuremap):
     """Reference-shaped entry (``optimizestrategy.h:132``): a list of
     aligned templates and their alignment vectors against one
     :class:`~.featuremap.Dt3Featuremap`, on that feature map's device ->
     a list of ``None | (score, translation (2,))``."""
     from ..core import geometry as geo
-    from .optimize_kernel import optimize_candidates_batch_kernel
     if not templates:
         return []
     if featuremap.feature_size == (0, 0):
         return [None] * len(templates)
-    dev = featuremap.dt3.device
     arrs = [geo.as_lines_np(t) for t in templates]
     c = len(arrs)
     lmax = max(max(a.shape[0] for a in arrs), 1)
-    lines = np.zeros((1, c, lmax, 4), np.float32)
-    mask = np.zeros((1, c, lmax), bool)
+    lines = np.zeros((c, lmax, 4), np.float32)
+    mask = np.zeros((c, lmax), bool)
     for i, a in enumerate(arrs):
-        lines[0, i, :a.shape[0]] = a
-        mask[0, i, :a.shape[0]] = True
-    av = np.asarray(alignments, np.float32).reshape(1, c, 2)
+        lines[i, :a.shape[0]] = a
+        mask[i, :a.shape[0]] = True
     mode, window = optimizer_mode(optimizer)
     w, h = featuremap.feature_size
-    as_dev = lambda a: torch.as_tensor(a, device=dev)
-    scores, trans, valid = optimize_candidates_batch_kernel(
-        featuremap.dt3[None], featuremap.angles,
-        featuremap.scene_translation[None],
-        as_dev(np.asarray([[w, h]], np.float32)), as_dev(lines),
-        as_dev(mask), as_dev(av), mode=mode, window=max(window, 1),
-        dense_steps=dense_step_count(optimizer, max(w, h)))
-    scores, trans, valid = (scores[0].cpu().numpy(), trans[0].cpu().numpy(),
-                            valid[0].cpu().numpy())
+    scores, trans, valid = optimize_candidates(
+        featuremap.dt3.reshape(-1), featuremap.angles,
+        featuremap.scene_translation, featuremap.dt3.shape[1:],
+        np.asarray([w, h], np.float32), lines, mask,
+        np.asarray(alignments, np.float32).reshape(c, 2), mode=mode,
+        window=max(window, 1), dense_steps=dense_step_count(optimizer, max(w, h)))
+    scores, trans, valid = (scores.cpu().numpy(), trans.cpu().numpy(),
+                            valid.cpu().numpy())
     return [(float(scores[i]), trans[i].copy()) if valid[i] else None
             for i in range(c)]
 

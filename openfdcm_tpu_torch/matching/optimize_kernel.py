@@ -238,7 +238,7 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
     valid = torch.isfinite(neg) & torch.isfinite(pos) & ~null_align
     if cand_ok is not None:
         valid = valid & cand_ok
-    slice_idx = fm.classify_lines(d, cand_lines)                  # (S, C, L)
+    slice_idx = fm.classify_lines(angles, cand_lines)             # (S, C, L)
 
     # --- flatten to one candidate axis ---------------------------------
     scene_of = torch.arange(s, device=dev).repeat_interleave(c)

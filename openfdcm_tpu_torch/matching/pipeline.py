@@ -83,8 +83,8 @@ class Dt3FeaturemapBatch:
 
 
 def build_featuremap_batch(scenes, params: fm.Dt3Params = fm.Dt3Params(),
-                           pad_to: int = 128, device=None,
-                           mesh=None) -> Dt3FeaturemapBatch:
+                           pad_to: int = 128, mesh=None, *,
+                           device=None) -> Dt3FeaturemapBatch:
     """Build the DT3 feature maps of a list of scenes on ``device`` (default
     the card).
 
@@ -156,7 +156,7 @@ def _build_stack(lines, mask, lhw, params, angles, phys, max_points, device):
                       torch.zeros((), dtype=dt3.dtype, device=dt3.device))
     dt3 = fm.propagate_orientation_relax(
         dt3, fm.propagation_steps(angles, params.dt3_coeff))
-    return integral.line_integral_stack(dt3, angles, lhw)
+    return integral.line_integral_stack_batch_(dt3, angles, lhw)
 
 
 def _call_device(mesh, device) -> torch.device:
@@ -242,7 +242,7 @@ def _rows(t, rows):
 def match_many(scenes, templates, params: fm.Dt3Params, searcher, optimizer,
                penalty=None, template_lengths=None, pad_to: int = 128,
                scene_chunk: int | None = None, top_k: int | None = None,
-               device=None, timer=None, mesh=None) -> list:
+               mesh=None, *, device=None, timer=None) -> list:
     """End-to-end matching of a list of scenes on ``device`` (default the
     card).
 
@@ -270,8 +270,8 @@ def match_many(scenes, templates, params: fm.Dt3Params, searcher, optimizer,
 def match_many_async(scenes, templates, params: fm.Dt3Params, searcher,
                      optimizer, penalty=None, template_lengths=None,
                      pad_to: int = 128, scene_chunk: int | None = None,
-                     top_k: int | None = None, device=None, timer=None,
-                     mesh=None):
+                     top_k: int | None = None, mesh=None, *, device=None,
+                     timer=None):
     """:func:`match_many` split into dispatch + collection: runs every build
     and search, and returns a zero-argument ``collect()`` that fetches the
     results (on the top-k path one device-to-host copy per dispatch) and

@@ -4,10 +4,11 @@
 The host pair tables (:func:`bank_pairs`, :func:`establish_search_strategy`)
 and the bank-static and scene-length tables are host numpy, copied as they
 are so their f32 values (and therefore length ties) are bit-identical to
-the JAX package; the port keeps the numpy path, whose semantics the JAX
-package's native extension reproduces.  On the top-k path the
-scene-dependent windows are computed on the device with index gathers
-(:func:`device_pairs`).
+the JAX package.  One template's pairs (:func:`_pair_by_length`) come from
+the native runtime (:mod:`openfdcm_tpu_torch.native`), as in the JAX
+package; :func:`_pair_by_length_plain` is its plain version.  On the
+top-k path the scene-dependent windows are computed on the device with
+index gathers (:func:`device_pairs`).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import native
 from ..core import geometry as geo
 
 _F32_EPS = np.float32(1.1920929e-07)
@@ -86,8 +88,19 @@ def _closest_desc(sorted_desc: np.ndarray, value: float) -> int:
 
 
 def _pair_by_length(tmpl_lengths, scene_lengths, scene_ids, max_tmpl, max_scene):
-    """Shared core of both strategies.  ``scene_ids`` maps the filtered/sorted
-    scene order back to original indices."""
+    """Shared core of both strategies, on the native runtime: ``(M, 2)``
+    int64 ``(template line, scene line)`` pairs.  ``scene_ids`` maps the
+    filtered scene order back to original indices."""
+    pairs = native.default_search_pairs(tmpl_lengths, scene_lengths,
+                                        max_tmpl, max_scene)
+    if pairs.size:
+        pairs[:, 1] = np.asarray(scene_ids)[pairs[:, 1]]
+    return pairs
+
+
+def _pair_by_length_plain(tmpl_lengths, scene_lengths, scene_ids, max_tmpl,
+                          max_scene):
+    """:func:`_pair_by_length` in numpy, copied from the JAX package."""
     order_t = np.argsort(-tmpl_lengths, kind="stable")
     order_s = np.argsort(-scene_lengths, kind="stable")
     sorted_scene_len = scene_lengths[order_s]

@@ -104,7 +104,7 @@ def _seed_rows(lines: torch.Tensor, depth: int, logical_hw, y0: int,
     ``F32_MAX`` elsewhere; seeds of other rows are masked out before the
     write."""
     h, w = logical_hw
-    slice_of_line = fm.classify_lines(depth, lines)                 # (N,)
+    slice_of_line = fm.classify_lines(fm.make_angles(depth), lines).to(torch.int64)
     box = torch.tensor([0.0, w - 1.0, 0.0, h - 1.0], dtype=torch.float32,
                        device=lines.device)
     pts, pmask = draw.seed_points_box(lines, box, max_points)       # (N, P, 2)

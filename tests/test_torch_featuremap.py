@@ -38,7 +38,7 @@ def test_classify_lines_index_equal(depth):
     lines = np.concatenate([lines, special])
     want = np.asarray(jfm.classify_lines(jnp.asarray(jfm.make_angles(depth)),
                                          jnp.asarray(lines)))
-    got = tfm.classify_lines(depth, torch.as_tensor(lines)).numpy()
+    got = tfm.classify_lines(tfm.make_angles(depth), torch.as_tensor(lines)).numpy()
     np.testing.assert_array_equal(got, want)
     assert got[-3] == depth - 1                  # NaN ratio -> last slice
 
@@ -139,7 +139,7 @@ def test_line_integral_stack_bit_equal_padded_canvas():
         imgs[i, :, h:, :] = 0.0
         imgs[i, :, :, w:] = 0.0
     # the integral is taken in place: hand the port a copy
-    got = tintegral.line_integral_stack(torch.tensor(imgs), angles, lhw).numpy()
+    got = tintegral.line_integral_stack_batch_(torch.tensor(imgs), angles, lhw).numpy()
     for i in range(2):
         want = np.asarray(jintegral.line_integral_stack(
             jnp.asarray(imgs[i]), list(angles), logical_hw=lhw[i]))
@@ -194,7 +194,7 @@ def test_k4_mirror_matches_plain_and_jax_padded_canvas():
         imgs[i, :, :, w:] = 0.0
     got = k4_mirror(imgs, deltas, table)
     np.testing.assert_array_equal(
-        got, tintegral.line_integral_stack(torch.tensor(imgs), angles, lhw).numpy())
+        got, tintegral.line_integral_stack_batch_(torch.tensor(imgs), angles, lhw).numpy())
     for i in range(2):
         want = np.asarray(jintegral.line_integral_stack(
             jnp.asarray(imgs[i]), list(angles), logical_hw=lhw[i]))

@@ -127,10 +127,10 @@ def test_line_integral_stack_cuda_matches_cpu():
     for i, (h, w) in enumerate(lhw):
         imgs[i, :, h:, :] = 0.0
         imgs[i, :, :, w:] = 0.0
-    want = core_integral.line_integral_stack(torch.tensor(imgs), angles, lhw)
+    want = core_integral.line_integral_stack_batch_(torch.tensor(imgs), angles, lhw)
     before = integral.sweep_stack.launches
-    got = core_integral.line_integral_stack(torch.tensor(imgs, device="cuda"),
-                                            angles, lhw)
+    got = core_integral.line_integral_stack_batch_(
+        torch.tensor(imgs, device="cuda"), angles, lhw)
     assert integral.sweep_stack.launches == before + 1
     _same(got, want)
 
@@ -668,3 +668,121 @@ def test_row_mesh_on_one_card_equals_unsharded():
         assert prop.propagate_orientation.launches == before[1] + 2
         if metric == ot.Distance.L2:
             assert minplus.minplus_rows.launches == before[0] + 2
+
+
+def _photo_lines(seed, n=400, w=1920, h=1080):
+    """``n`` random lines on a ``w x h`` scene, a few leaving it."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0, 1, (n, 2)) * (w, h)
+    d = rng.uniform(-80, 80, (n, 2))
+    return np.concatenate([c - d, c + d], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("metric", [ot.Distance.L1, ot.Distance.L2,
+                                    ot.Distance.L2_SQUARED])
+def test_distance_transform_cuda_matches_cpu(metric):
+    """The single-image DT of a 1920 x 1080 scene on the card (K2 for L2
+    and L2²) against the CPU, bit for bit."""
+    from openfdcm_tpu_torch.core import dt
+    lines = _photo_lines(0)
+    before = minplus.minplus_rows.launches
+    got = dt.distance_transform(lines, (1920, 1080), metric)
+    assert got.device.type == "cuda" and got.shape == (1080, 1920)
+    assert minplus.minplus_rows.launches == before + (metric != ot.Distance.L1)
+    _same(got, dt.distance_transform(lines, (1920, 1080), metric, device="cpu"))
+
+
+def test_line_integral_cuda_matches_cpu():
+    """``line_integral`` of a 1080 x 1920 image at the edge angles, one K4
+    launch each, against the CPU; the input is left as it was."""
+    from openfdcm_tpu_torch.core import integral as core_integral
+    img = torch.as_tensor(np.random.default_rng(1).uniform(0, 9, (1080, 1920))
+                          .astype(np.float32))
+    dev = img.cuda()
+    for angle in (0.0, np.pi / 2, -np.pi / 2, np.pi / 2 - 1e-6, 2.9):
+        before = integral.sweep_stack.launches
+        got = core_integral.line_integral(dev, angle)
+        assert integral.sweep_stack.launches == before + 1
+        _same(got, core_integral.line_integral(img, angle))
+    _same(dev, img)
+
+
+def test_orientation_helpers_cuda_match_cpu():
+    angles = tfm.make_angles(30)
+    theta = np.random.default_rng(2).uniform(-7, 7, 100_000).astype(np.float32)
+    theta[:3] = (np.nan, np.inf, -np.inf)
+    got = tfm.closest_orientation_idx(torch.as_tensor(angles, device="cuda"),
+                                      torch.as_tensor(theta, device="cuda"))
+    _same(got, tfm.closest_orientation_idx(angles, torch.as_tensor(theta)))
+    dt3 = np.random.default_rng(3).uniform(0, 50, (30, 64, 96)).astype(np.float32)
+    wmat = tfm.propagation_weights(angles, 5.0)
+    _same(tfm.propagate_orientation(torch.as_tensor(dt3, device="cuda"), wmat),
+          tfm.propagate_orientation(torch.as_tensor(dt3), wmat))
+
+
+def test_div_cr_sqrt_cr_cuda_are_ieee():
+    from openfdcm_tpu_torch.core import geometry as geo
+    bits = np.random.default_rng(4).integers(0, 2 ** 32, (2, 1_000_000), dtype=np.uint64)
+    a, b = bits.astype(np.uint32).view(np.float32)
+    with np.errstate(all="ignore"):
+        want_q, want_r = a / b, np.sqrt(np.abs(a))
+    _same(geo.div_cr(torch.as_tensor(a, device="cuda"), torch.as_tensor(b, device="cuda")),
+          torch.as_tensor(want_q))
+    _same(geo.sqrt_cr(torch.as_tensor(np.abs(a), device="cuda")), torch.as_tensor(want_r))
+
+
+@pytest.mark.parametrize("version", [4, 3, 2])
+def test_optimize_candidates_cuda_matches_cpu(version, monkeypatch):
+    """``optimize_candidates`` on one scene's candidates at each window
+    generation (K1, K6, K5 on the card) against the CPU."""
+    from openfdcm_tpu_torch.matching import optimize as topt
+    from openfdcm_tpu_torch.matching.match import _bucket, _scene_candidates
+    from openfdcm_tpu_torch.matching.pipeline import _bank_pairs_for_scene
+    monkeypatch.setenv("OPENFDCM_TPU_KERNEL_VERSION", str(version))
+    scenes, templates = _two_scene_problem()
+    params = ot.Dt3Params(8, 5.0, 1.5, ot.Distance.L2)
+    kernel = {4: window.window_scores, 3: window_v3.window_v3, 2: window_v2.window_v2}
+    for dev in ("cuda", "cpu"):
+        fm = ot.build_featuremap(scenes[0], params, pad_to=256, device=dev)
+        bank = ot.prepare_templates(templates, device=dev)
+        pairs = _bank_pairs_for_scene(ot.DefaultSearch(3, 5), bank, scenes[0])
+        lines, mask, align, _, _ = _scene_candidates(bank, pairs, scenes[0],
+                                                     _bucket(pairs.shape[0], 64))
+        w, h = fm.feature_size
+        before = kernel[version].launches
+        out = topt.optimize_candidates(
+            fm.dt3.reshape(-1), fm.angles, fm.scene_translation, fm.dt3.shape[1:],
+            np.float32([w, h]), lines, mask, align, mode="default", window=32,
+            dense_steps=1)
+        if dev == "cuda":
+            assert kernel[version].launches > before
+            got = out
+    for g, c in zip(got, out):
+        _same(g, c)
+
+
+def test_native_runtime_on_the_card_host(tmp_path):
+    """The native codec, loader and pairs on the card's host against the
+    port's plain versions."""
+    from openfdcm_tpu_torch import native
+    from openfdcm_tpu_torch.core import io
+    from openfdcm_tpu_torch.matching import search
+    rng = np.random.default_rng(5)
+    paths = []
+    for i in range(20):
+        lines = rng.uniform(-500, 500, (i + 1, 4)).astype(np.float32)
+        p = tmp_path / f"f{i:02d}.tmpl"
+        io.write(str(p), lines, compress=bool(i % 2))
+        paths.append(p)
+        assert io.read_plain(str(p)).tobytes() == lines.tobytes()
+    for threads in (1, 8):
+        got = io.read_batch(paths, num_threads=threads)
+        assert all(a.tobytes() == b.tobytes()
+                   for a, b in zip(got, io.read_batch_plain(paths)))
+    tl = rng.uniform(0, 100, 30).astype(np.float32)
+    sl = rng.uniform(0, 100, 60).astype(np.float32)
+    sl[1] = sl[0]
+    np.testing.assert_array_equal(
+        search._pair_by_length(tl, sl, np.arange(60), 4, 10),
+        search._pair_by_length_plain(tl, sl, np.arange(60), 4, 10))
+    assert native.library_path().exists()

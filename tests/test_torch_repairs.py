@@ -11,15 +11,33 @@
   unsplit run;
 * ``IndulgentOptimize.get_number_of_passthroughs``;
 * the dispatch budget counts the caching allocator's unused blocks as
-  free, so an earlier dispatch's cache does not split the next one.
+  free, so an earlier dispatch's cache does not split the next one;
+
+and four places where the port answered a JAX signature differently:
+
+* ``core.integral.line_integral_stack`` takes one ``(D, PH, PW)`` stack
+  with an optional ``logical_hw`` and returns a new tensor (the batched,
+  in-place sweep is ``line_integral_stack_batch_``);
+* ``featuremap.propagate_orientation(dt3, wmat)`` is the dense min-plus
+  closure (K3's relaxation is ``propagate_orientation_relax``);
+* ``featuremap.classify_lines(angles, lines)`` takes the angle table and
+  returns int32 indices;
+* ``mesh`` is the last positional parameter of ``build_featuremap_batch``,
+  ``match_many`` and ``match_many_async``; ``device`` and ``timer`` are
+  keyword-only.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import openfdcm_tpu as of
+from openfdcm_tpu.core import integral as jintegral
+from openfdcm_tpu.matching import featuremap as jfm
 import openfdcm_tpu_torch as ot
+from openfdcm_tpu_torch.core import integral as tintegral
 from openfdcm_tpu_torch.core.geometry import pow_f32
+from openfdcm_tpu_torch.matching import featuremap as tfm
 from openfdcm_tpu_torch.matching import optimize_kernel as tok
 from openfdcm_tpu_torch.matching import pipeline as tpipe
 from tests.torch_cases import assert_same_matches, three_scene_problem
@@ -213,3 +231,65 @@ def test_budget_counts_cached_blocks_as_free(monkeypatch):
     monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d=None: 4 * gib)
     assert tpipe._budget(torch.device("cuda", 0)) == 12 * gib
     assert tpipe._budget(torch.device("cpu")) == tpipe.CPU_BUDGET
+
+
+def test_line_integral_stack_takes_the_jax_contract():
+    """A ``(D, PH, PW)`` stack, ``logical_hw`` omitted or given: the JAX
+    package's result bit for bit, and the input left as it was."""
+    rng = np.random.default_rng(7)
+    angles = list(tfm.make_angles(6))
+    imgs = rng.uniform(0, 9, (6, 24, 40)).astype(np.float32)
+    for lhw in (None, (20, 31)):
+        x = imgs.copy()
+        if lhw is not None:
+            x[:, lhw[0]:, :] = 0.0
+            x[:, :, lhw[1]:] = 0.0
+        given = torch.tensor(x)
+        got = tintegral.line_integral_stack(given, angles, lhw)
+        want = np.asarray(jintegral.line_integral_stack(jnp.asarray(x), angles,
+                                                        logical_hw=lhw))
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(given.numpy(), x)
+
+
+def test_propagate_orientation_takes_wmat():
+    """``propagate_orientation(dt3, wmat)``: the JAX package's closure, bit
+    for bit, on a stack with empty (infinite) slices."""
+    rng = np.random.default_rng(8)
+    angles = jfm.make_angles(6)
+    dt3 = rng.uniform(0, 40, (6, 12, 17)).astype(np.float32)
+    dt3[2] = np.inf
+    wmat = jfm.propagation_weights(angles, 5.0)
+    want = np.asarray(jfm.propagate_orientation(jnp.asarray(dt3), jnp.asarray(wmat)))
+    got = tfm.propagate_orientation(torch.as_tensor(dt3), torch.as_tensor(wmat))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_classify_lines_takes_the_angle_table():
+    rng = np.random.default_rng(9)
+    lines = rng.uniform(-50, 50, (300, 4)).astype(np.float32)
+    lines[:3] = [[3, 3, 3, 3], [1, 1, 1, 9], [0, 0, 5, -5]]
+    for angles in (jfm.make_angles(8), jnp.asarray(jfm.make_angles(30))):
+        want = np.asarray(jfm.classify_lines(jnp.asarray(angles), jnp.asarray(lines)))
+        got = tfm.classify_lines(np.asarray(angles), torch.as_tensor(lines))
+        assert got.dtype == torch.int32 and want.dtype == np.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_mesh_is_the_last_positional_parameter():
+    """A positional ``mesh`` (two ``cpu`` entries on ``"scene"``) gives the
+    meshed result, as in the JAX package; ``device`` is keyword-only."""
+    from openfdcm_tpu_torch.parallel import make_mesh
+    scenes, templates = three_scene_problem()
+    params = ot.Dt3Params(4, 5.0, 2.2, ot.Distance.L2)
+    mesh = make_mesh((2,), ("scene",), devices=[torch.device("cpu")] * 2)
+    got = ot.build_featuremap_batch(scenes, params, 128, mesh)
+    want = ot.build_featuremap_batch(scenes, params, 128, mesh=mesh)
+    assert torch.equal(got.dt3, want.dt3)
+    args = (scenes, templates, params, ot.DefaultSearch(4, 10), ot.BatchOptimize(10),
+            ot.ExponentialPenalty(1.5), None, 128, None, TOP_K)
+    positional = ot.match_many(*args, mesh)
+    assert_same_matches(positional, ot.match_many(*args, mesh=mesh), exact=True)
+    assert_same_matches(ot.match_many_async(*args, mesh)(), positional, exact=True)
+    with pytest.raises(TypeError):
+        ot.match_many(*args, None, "cpu")
