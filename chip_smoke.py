@@ -130,7 +130,16 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
    candidates under Default, Indulgent, Batch(10) and DenseOptimize at
    generation 4 and DefaultOptimize under generations 2 and 3, each run's
    valid rows equal to ``search``'s for the scene bit for bit, with K1, K5
-   or K6 launched under its generation; walls.
+   or K6 launched under its generation; walls;
+31. (run after 27) a mesh over two processes on one card: phase 23's
+   two-scene optimize on a ``("scene", 2) x ("cand", 2)`` mesh whose row
+   ``r`` belongs to rank ``r`` of two spawned gloo ranks (each imports
+   only torch and the port, two ``cuda:0`` entries each), under
+   generations 4, 2 and 3: each rank's shards bit-equal to the unsharded
+   kernel call's rows, K1 and the tile copy (K5, K6) launched in each
+   rank's process, ``global_topk`` on a ``("cand", 4)`` mesh over the
+   ranks equal to phase 27's on every rank; each rank's wall beside the
+   single-process meshed wall.
 
 Phase 3 also holds one dense 64-lane K1 call against the plain version,
 and phase 4 adds DenseOptimize and the host ranking path; every CUDA
@@ -1895,8 +1904,9 @@ def phase_mesh_cand(banks, params, searcher, optimizer, penalty, device):
 def phase_mesh_optimize(banks, params, searcher, optimizer, penalty, device):
     """A ``("scene", 2) x ("cand", 2)`` mesh: ``optimize_candidates_sharded_batch``
     on two bank-0 scenes' real candidates equals the unsharded kernel call,
-    and so does ``topk_candidates`` on its scores.  Returns scene 0's
-    scores and validity for the ``global_topk`` phase."""
+    and so does ``topk_candidates`` on its scores.  Returns the call's
+    inputs (for the two-process phase) and scene 0's scores and validity
+    (for the ``global_topk`` phases)."""
     from openfdcm_tpu_torch.matching.match import _bucket, _scene_candidates
     from openfdcm_tpu_torch.matching.optimize_kernel import \
         optimize_candidates_batch_kernel
@@ -1937,7 +1947,10 @@ def phase_mesh_optimize(banks, params, searcher, optimizer, penalty, device):
     mesh_line("mesh optimize", f"2 scenes x {lines.shape[1]} candidates "
               f"({int((got[2] & ok).sum())} valid), scores, translations, "
               f"validity and top-{TOP_K} equal", mesh, wall, wall_u, launches)
-    return got[0][0], got[2][0] & ok[0]
+    case = dict(dt3_flat=fms.dt3.reshape(s_count, -1), angles=fms.angles,
+                scene_tr=fms.scene_translations, hw=(ph, pw), fs=fs,
+                lines=lines, mask=mask, align=align, kw=kw)
+    return case, got[0][0], got[2][0] & ok[0]
 
 
 def sorted_rows(res):
@@ -2062,7 +2075,7 @@ def phase_mesh_serving_sweep(banks, params, searcher, optimizer, penalty, device
 
 def phase_mesh_global_topk(scores, valid, device):
     """``global_topk`` on a ``("cand", 4)`` mesh over real candidate scores
-    equals ``topk_candidates`` on the whole row."""
+    equals ``topk_candidates`` on the whole row; returns it."""
     from openfdcm_tpu_torch.parallel import global_topk, topk_candidates
     mesh = card_mesh((4,), ("cand",), device)
     want, wall_u, _ = timed(lambda: topk_candidates(scores, valid, TOP_K))
@@ -2072,6 +2085,148 @@ def phase_mesh_global_topk(scores, valid, device):
     mesh_line("mesh topk", f"global_topk of {scores.shape[0]} scores "
               f"({int(valid.sum())} valid) equals topk_candidates", mesh, wall,
               wall_u, launches)
+    return got
+
+
+# ---------------------------------------------------------------------------
+# a mesh over two processes on one card (phase 31, run after phase 27)
+# ---------------------------------------------------------------------------
+
+RANKS = 2
+
+
+def mesh_rank(rank, init_file, work, device):
+    """One rank of phase 31, in a spawned process that imports only torch,
+    numpy and the port: joins a gloo group of ``RANKS`` through
+    ``parallel.initialize``, runs ``optimize_candidates_sharded_batch`` on
+    a ``("scene", 2) x ("cand", 2)`` mesh whose row ``r`` is rank ``r``'s
+    (two ``cuda:0`` entries each) under generations 4, 2 and 3, each run
+    with this process's counts set to 0 just before it and read just
+    after, then ``global_topk`` on a ``("cand", 4)`` mesh over the ranks;
+    ``device`` names the card (``cuda:0``).  Writes ``rank<r>.pt``, or
+    ``rank<r>.err`` and exits 1."""
+    from openfdcm_tpu_torch.parallel import (global_topk, initialize, make_mesh,
+                                             optimize_candidates_sharded_batch)
+    try:
+        initialize(f"file://{init_file}", RANKS, rank, backend="gloo")
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        x = {k: v.to(dev) if torch.is_tensor(v) else v
+             for k, v in torch.load(os.path.join(work, "inputs.pt")).items()}
+        x["kw"]["cand_ok"] = x["kw"]["cand_ok"].to(dev)
+        entries = [(r, dev) for r in range(RANKS) for _ in range(2)]
+        mesh = make_mesh((2, 2), ("scene", "cand"), devices=entries)
+        args = (x["dt3_flat"], x["angles"], x["scene_tr"], x["hw"], x["fs"],
+                x["lines"], x["mask"], x["align"])
+        out = {}
+        with generation(4):                 # warm-up: library load, context
+            optimize_candidates_sharded_batch(mesh, *args, **x["kw"])
+        for version in (4, 2, 3):
+            with generation(version):
+                reset_counts()
+                t0 = time.perf_counter()
+                res = optimize_candidates_sharded_batch(mesh, *args, **x["kw"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read_counts()[0]
+            out[version] = dict(wall=wall, launches=launches, shards=[
+                [([[i.start, i.stop] for i in sh.index], sh.data.cpu(), str(sh.device))
+                 for sh in r.addressable_shards] for r in res])
+        cand = make_mesh((2 * RANKS,), ("cand",), devices=entries)
+        out["topk"] = [t.cpu() for t in global_topk(cand, x["scores"], x["valid"],
+                                                      TOP_K)]
+        out["jax"] = [m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "openfdcm_tpu")]
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    except Exception:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        sys.exit(1)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def phase_mesh_processes(case, scores, valid, topk, device, timeout=600):
+    """Phase 31: phase 23's two-scene optimize on a mesh over ``RANKS``
+    spawned processes on one card (gloo through host memory; NCCL refuses
+    two ranks on one card), against the single-process port: every shard
+    bit-equal to the unsharded kernel call's rows under generations 4, 2
+    and 3, K1 and the tile copy (K5, K6 under generations 2, 3) launched in
+    each rank's process, ``global_topk`` over the ranks equal to phase
+    27's; each rank's wall beside the single-process meshed wall (two
+    processes on one card: a cost, not a scaling)."""
+    import multiprocessing
+    from openfdcm_tpu_torch.matching.optimize_kernel import \
+        optimize_candidates_batch_kernel
+    from openfdcm_tpu_torch.parallel import optimize_candidates_sharded_batch
+    s_count, c = case["mask"].shape[:2]
+    li = case["dt3_flat"].reshape(s_count, -1, *case["hw"])
+    args = (case["angles"], case["scene_tr"], case["fs"], case["lines"],
+            case["mask"], case["align"])
+    mesh = card_mesh((2, 2), ("scene", "cand"), device)
+    want, mesh_wall = {}, {}
+    for version in (4, 2, 3):
+        with generation(version):
+            want[version] = optimize_candidates_batch_kernel(li, *args, **case["kw"])
+            _, mesh_wall[version], _ = timed(lambda: optimize_candidates_sharded_batch(
+                mesh, case["dt3_flat"], case["angles"], case["scene_tr"],
+                case["hw"], case["fs"], *args[3:], **case["kw"]))
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({**{k: v.cpu() if torch.is_tensor(v) else v
+                       for k, v in case.items()},
+                    "kw": {**case["kw"], "cand_ok": case["kw"]["cand_ok"].cpu()},
+                    "scores": scores.cpu(), "valid": valid.cpu()},
+                   os.path.join(work, "inputs.pt"))
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, os.path.join(work, "rendezvous"), work,
+                                   str(case["lines"].device)))
+                 for r in range(RANKS)]
+        try:
+            for proc in procs:
+                proc.start()
+            for proc in procs:
+                proc.join(max(0.0, t0 + timeout - time.perf_counter()))
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        spawn_wall = time.perf_counter() - t0
+        for r, proc in enumerate(procs):
+            err = os.path.join(work, f"rank{r}.err")
+            why = open(err).read() if os.path.exists(err) else "no traceback"
+            check(proc.exitcode == 0, f"mesh over processes: rank {r} exited "
+                  f"with {proc.exitcode}:\n{why}")
+        seen = [torch.load(os.path.join(work, f"rank{r}.pt")) for r in range(RANKS)]
+    for r, rec in enumerate(seen):
+        check(rec["jax"] == [], f"rank {r} imported {rec['jax']}")
+        for version in (4, 2, 3):
+            got = rec[version]
+            for out, sh in zip(want[version], got["shards"]):
+                check([ix[0] for ix, _, _ in sh] == [[r, r + 1]] * 2,
+                      f"rank {r} holds rows {[ix[0] for ix, _, _ in sh]}")
+                for index, data, _ in sh:
+                    at = tuple(slice(a, b) for a, b in index)
+                    n_bad = mismatches(data, out[at].cpu())
+                    check(n_bad == 0, f"rank {r}, generation {version}: a shard "
+                          f"at {index} differs in {n_bad} cells")
+            check_launched(got["launches"], SEARCH_KERNELS[version],
+                           f"rank {r}, generation {version}")
+            print(f"[mesh processes] rank {r} of {RANKS}, generation {version}: "
+                  f"{got['wall']:.4f} s for its 2 blocks of {c // 2} candidates "
+                  f"(scene {r}), single-process meshed wall "
+                  f"{mesh_wall[version]:.4f} s; shards bit-equal; launches "
+                  f"{short(got['launches'])}")
+        check(all(torch.equal(a, b.cpu()) for a, b in zip(rec["topk"], topk)),
+              f"rank {r}: global_topk over the ranks differs from phase 27's")
+    print(f"[mesh processes] {RANKS} ranks on one card (gloo, host-staged): "
+          f"global_topk of {scores.shape[0]} scores equal on every rank to "
+          f"phase 27's; ranks spawned, run and joined in {spawn_wall:.1f} s; "
+          f"no JAX in the ranks")
 
 
 # ---------------------------------------------------------------------------
@@ -2306,12 +2461,13 @@ def main(argv=None) -> int:
             phase_cli(banks, ref, tdir, sdir, scene_paths, root, device)
             phase_mesh_scene(banks, *cfg, batch_ref)
             phase_mesh_cand(banks, *cfg)
-            scores, valid = phase_mesh_optimize(banks, *cfg)
+            opt_case, scores, valid = phase_mesh_optimize(banks, *cfg)
             phase_mesh_bank(banks, *cfg, ref, bank_wall)
             phase_mesh_rows(banks, *cfg)
             phase_mesh_serving_sweep(banks, *cfg, ref, serve_wall, sweep_wall,
                                      tmpl_paths, root)
-            phase_mesh_global_topk(scores, valid, device)
+            topk = phase_mesh_global_topk(scores, valid, device)
+            phase_mesh_processes(opt_case, scores, valid, topk, device)
             phase_native(banks, root, tmpl_paths, scene_paths)
         phase_pose(banks, *cfg, args.seed)
         phase_compat(device)

@@ -21,6 +21,7 @@ import torch
 
 from ..core import draw
 from ..core import geometry as geo
+from ..core.dt import dt_from_indicator  # noqa: F401  (re-exported, as in JAX)
 from ..core.rasterize import to_int_trunc
 from ..core.types import Distance, F32_MAX, resolve_device
 from ..ops.prop import propagate_orientation as k3_relax
@@ -423,33 +424,35 @@ def minmax_translation(featuremap: Dt3Featuremap, tmpl: torch.Tensor,
 
 def evaluate_batched(dt3_flat: torch.Tensor, hw: tuple, slice_idx: torch.Tensor,
                      endpoints: torch.Tensor, line_mask: torch.Tensor,
-                     translations: torch.Tensor) -> torch.Tensor:
+                     translations: torch.Tensor, take_fn=None) -> torch.Tensor:
     """FDCM scores of ``translations (..., K, 2)`` (scene translation
     included) for templates ``endpoints (..., L, 2, 2)`` with orientation
     slices ``slice_idx (..., L)`` and weights ``line_mask (..., L)``: per
     translation, the sum over lines, in line order, of ``|dt3[o, y2, x2] -
     dt3[o, y1, x1]|`` at int-truncated coordinates (reference
     ``dt3cpu.cpp:126-179``).  ``dt3_flat``: the flattened ``(D, H, W)``
-    stack; probes are clamped to it as ``jnp.take(mode="clip")`` clamps."""
+    stack; probes are clamped to it as ``jnp.take(mode="clip")`` clamps.
+    ``take_fn(dt3_flat, idx)``: an optional probe gather in place of the
+    clamped one, given the unclamped flat indices ``(2, L, B*K)`` as in the
+    JAX package (which must then clamp as it needs)."""
     h, w = hw
     lead = endpoints.shape[:-3]
     l, k = endpoints.shape[-3], translations.shape[-2]
     b = int(np.prod(lead)) if lead else 1
-    ep = endpoints.reshape(b, l, 2, 2)
+    ep = endpoints.reshape(b, l, 2, 2).permute(2, 1, 0, 3)          # (2, L, B, 2)
     tr = translations.reshape(b, k, 2)
     si = slice_idx.reshape(b, l).to(torch.int64)
     lm = line_mask.reshape(b, l).to(torch.float32)
-    last = dt3_flat.numel() - 1
+    xi = to_int_trunc(ep[..., 0:1] + tr[..., 0])                    # (2, L, B, K)
+    yi = to_int_trunc(ep[..., 1:2] + tr[..., 1])
+    idx = (si.t() * (h * w))[None, :, :, None] + yi * w + xi
+    if take_fn is None:
+        vals = dt3_flat[idx.clamp(0, dt3_flat.numel() - 1)]
+    else:
+        vals = take_fn(dt3_flat, idx.reshape(2, l, b * k)).reshape(2, l, b, k)
     acc = torch.zeros((b, k), dtype=torch.float32, device=dt3_flat.device)
     for j in range(l):
-        base = (si[:, j] * (h * w))[:, None]
-
-        def probe(e):
-            xi = to_int_trunc(ep[:, j, e, 0:1] + tr[..., 0])
-            yi = to_int_trunc(ep[:, j, e, 1:2] + tr[..., 1])
-            return dt3_flat[(base + yi * w + xi).clamp(0, last)]
-
-        acc = acc + (probe(0) - probe(1)).abs() * lm[:, j:j + 1]
+        acc = acc + (vals[0, j] - vals[1, j]).abs() * lm[:, j:j + 1]
     return acc.reshape(*lead, k)
 
 

@@ -357,6 +357,7 @@ def search(matcher, searcher, optimizer, featuremap, templates, scene,
     from .pipeline import Dt3FeaturemapBatch, _search_batch_arrays
     dev = featuremap.dt3.device
     if mesh is not None:
+        mesh.require_local("search")
         mesh.resolve(dev)           # the feature map's device is in the mesh
     bank = templates if isinstance(templates, TemplateBank) \
         else prepare_templates(templates, device=dev)

@@ -98,7 +98,7 @@ def build_featuremap_batch(scenes, params: fm.Dt3Params = fm.Dt3Params(),
     device, and the blocks are gathered (the padding trimmed) onto
     ``device``, which the mesh decides when it is None.  Every scene's
     stack is the unsharded build's, bit for bit."""
-    device = _call_device(mesh, device)
+    device = _call_device(mesh, device, "build_featuremap_batch")
     arrs = [geo.as_lines_np(s) for s in scenes]
     metas = [fm.scene_centered_translation(a, params.padding) for a in arrs]
     phys = max(max(w, h) for _, (w, h) in metas)
@@ -159,12 +159,14 @@ def _build_stack(lines, mask, lhw, params, angles, phys, max_points, device):
     return integral.line_integral_stack_batch_(dt3, angles, lhw)
 
 
-def _call_device(mesh, device) -> torch.device:
-    """The device an entry point gathers its results on: ``device`` (the
-    card when None) without a mesh; with one, the mesh's first entry when
-    ``device`` is None, else ``device``, which must be in the mesh."""
+def _call_device(mesh, device, what: str) -> torch.device:
+    """The device entry point ``what`` gathers its results on: ``device``
+    (the card when None) without a mesh; with one, which must hold only
+    this process's devices, the mesh's first entry when ``device`` is
+    None, else ``device``, which must be in the mesh."""
     if mesh is None:
         return resolve_device("cuda" if device is None else device)
+    mesh.require_local(what)
     return mesh.resolve(device)
 
 
@@ -260,6 +262,8 @@ def match_many(scenes, templates, params: fm.Dt3Params, searcher, optimizer,
     device pairs serve a scene-only mesh, as in the JAX package).  Results
     are gathered onto ``device``, which the mesh decides when it is None,
     and equal the unsharded call's."""
+    if mesh is not None:
+        mesh.require_local("match_many")
     return match_many_async(scenes, templates, params, searcher, optimizer,
                             penalty=penalty, template_lengths=template_lengths,
                             pad_to=pad_to, scene_chunk=scene_chunk,
@@ -276,7 +280,7 @@ def match_many_async(scenes, templates, params: fm.Dt3Params, searcher,
     and search, and returns a zero-argument ``collect()`` that fetches the
     results (on the top-k path one device-to-host copy per dispatch) and
     returns ``list[list[Match]]``."""
-    device = _call_device(mesh, device)
+    device = _call_device(mesh, device, "match_many_async")
     opt.optimizer_mode(optimizer)      # an unknown optimizer raises here
     kernel_version()                   # a non-integer generation raises here
     bank = templates if isinstance(templates, TemplateBank) \
@@ -502,6 +506,7 @@ def search_batch(matcher, searcher, optimizer, featuremaps: Dt3FeaturemapBatch,
     del matcher
     dev = featuremaps.dt3.device
     if mesh is not None:
+        mesh.require_local("search_batch")
         mesh.resolve(dev)           # the feature maps' device is in the mesh
     bank = templates if isinstance(templates, TemplateBank) \
         else prepare_templates(templates, device=dev)

@@ -93,6 +93,7 @@ def match_many_bank_sharded(scenes, templates, params, searcher, optimizer,
     penalty must have the reference's power form (None, ``DefaultPenalty``,
     ``ExponentialPenalty``).  Returns ``list[list[Match]]`` per scene, the
     k best ascending, gathered onto the mesh's first entry."""
+    mesh.require_local("match_many_bank_sharded")
     n_bank = mesh.axis_size(bank_axis)
     n_sc = mesh.axis_size(scene_axis)
     shards = prepare_bank_shards(templates, n_bank)

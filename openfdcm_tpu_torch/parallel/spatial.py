@@ -160,6 +160,7 @@ def build_featuremap_spatial(scene, params: fm.Dt3Params = fm.Dt3Params(), *,
     ``lcm(pad_to, n)``; on the logical region the stack equals
     :func:`~openfdcm_tpu_torch.matching.featuremap.build_featuremap`'s bit
     for bit."""
+    mesh.require_local("build_featuremap_spatial")
     devices = mesh.along(axis)
     nblk = len(devices)
     scene = geo.as_lines_np(scene)
@@ -204,6 +205,7 @@ def search_spatial(searcher, optimizer, featuremap: fm.Dt3Featuremap,
     host line arrays, or a :class:`~openfdcm_tpu_torch.TemplateBank` on the
     feature map's first entry.  Returns an UNSORTED list of matches equal
     to the unsharded ``search``'s."""
+    mesh.require_local("search_spatial")
     from ..matching import optimize as opt
     from ..matching.match import (Match, TemplateBank, _bucket,
                                   _scene_candidates, prepare_templates)

@@ -45,7 +45,7 @@ class MatcherService:
                  *, top_k: int, penalty=None, template_lengths=None,
                  mesh=None, max_batch: int = 16,
                  max_batch_delay_s: float = 0.005, device=None):
-        self.device = _call_device(mesh, device)
+        self.device = _call_device(mesh, device, "MatcherService")
         self.mesh = mesh
         self.bank: TemplateBank = (
             templates if isinstance(templates, TemplateBank)

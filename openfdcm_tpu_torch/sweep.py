@@ -90,7 +90,7 @@ def resumable_sweep(scenes, templates, params: fm.Dt3Params, searcher,
     ``list[list[Match]]`` per scene, equal to ``match_many(...,
     top_k=top_k)`` over the whole bank.  ``match_fn(scenes, chunk_templates,
     chunk_lengths)`` overrides the per-chunk matcher."""
-    device = _call_device(mesh, device)
+    device = _call_device(mesh, device, "resumable_sweep")
     n_total = len(templates)
     lazy = bool(n_total) and isinstance(templates[0], (str, os.PathLike))
 

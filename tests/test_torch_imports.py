@@ -236,3 +236,79 @@ def test_port_carries_every_public_name():
                 missing.append(key)
     assert not missing, f"public names the port lacks: {missing}"
     assert listed == set(NOT_CARRIED_OVER), set(NOT_CARRIED_OVER) - listed
+
+
+# JAX parameters the port does not take, by the defining function or
+# method, each with its reason.
+SIGNATURE_EXCEPTIONS = {
+    "openfdcm_tpu.matching.featuremap.Dt3Featuremap.tree_flatten":
+        "JAX's pytree hook; the port's feature map is a plain dataclass",
+    "openfdcm_tpu.matching.featuremap.Dt3Featuremap.tree_unflatten":
+        "JAX's pytree hook, as above",
+    "openfdcm_tpu.matching.pipeline.Dt3FeaturemapBatch.tree_flatten":
+        "JAX's pytree hook, as above",
+    "openfdcm_tpu.matching.pipeline.Dt3FeaturemapBatch.tree_unflatten":
+        "JAX's pytree hook, as above",
+    "openfdcm_tpu.matching.optimize_kernel.optimize_candidates_batch_kernel":
+        "the port's window kernels read the LI stack itself (li, not the "
+        "flattened dt3), need no item-stream capacity (items_cap) and always "
+        "run the straggler pass (skip_straggler); it adds dense_steps (the "
+        "dense sweep on K1) and take (the row-sharded search's reader)",
+}
+
+
+def _callables(obj, key):
+    """``(defining key, function)`` of a public function, or of a public
+    class's ``__init__`` and public methods."""
+    if not isinstance(obj, type):
+        yield key, obj
+        return
+    yield f"{key}.__init__", obj.__init__
+    for name, member in vars(obj).items():
+        if not name.startswith("_") and (
+                callable(member) or isinstance(member, (staticmethod, classmethod))):
+            yield f"{key}.{name}", getattr(obj, name)
+
+
+def test_port_takes_the_jax_parameters():
+    """For every public function and public class method of each JAX
+    module, the port's counterpart takes the same parameter names in the
+    same order (a call written for the JAX package binds in the port); a
+    parameter that only the port has takes a default.  Exceptions:
+    :data:`SIGNATURE_EXCEPTIONS`."""
+    import inspect
+
+    wrong, seen = [], set()
+    for mod, path in _jax_modules():
+        if mod in NOT_CARRIED_OVER:
+            continue
+        jax_mod = importlib.import_module(mod)
+        port_mod = importlib.import_module(
+            mod.replace("openfdcm_tpu", "openfdcm_tpu_torch", 1))
+        for name in sorted(_public_names(path)):
+            jobj = getattr(jax_mod, name, None)
+            if f"{mod}.{name}" in NOT_CARRIED_OVER or not callable(jobj):
+                continue
+            key = f"{getattr(jobj, '__module__', mod)}.{getattr(jobj, '__qualname__', name)}"
+            pobj = getattr(port_mod, name)
+            for k, jf in _callables(jobj, key):
+                if k in seen:
+                    continue
+                seen.add(k)
+                pf = (getattr(pobj, k.rsplit(".", 1)[1], None)
+                      if isinstance(jobj, type) else pobj)
+                if k in SIGNATURE_EXCEPTIONS:
+                    continue
+                if pf is None:
+                    wrong.append(f"{k}: the port has no such method")
+                    continue
+                jp = list(inspect.signature(jf).parameters)
+                pp = inspect.signature(pf).parameters
+                extra = [p for n, p in pp.items() if n not in jp]
+                if ([n for n in pp if n in jp] != jp or any(
+                        p.default is p.empty and p.kind not in (p.VAR_POSITIONAL,
+                                                                p.VAR_KEYWORD)
+                        for p in extra)):
+                    wrong.append(f"{k}: JAX {jp}, port {list(pp)}")
+    assert not wrong, wrong
+    assert set(SIGNATURE_EXCEPTIONS) <= seen, set(SIGNATURE_EXCEPTIONS) - seen

@@ -24,7 +24,14 @@ and four places where the port answered a JAX signature differently:
   returns int32 indices;
 * ``mesh`` is the last positional parameter of ``build_featuremap_batch``,
   ``match_many`` and ``match_many_async``; ``device`` and ``timer`` are
-  keyword-only.
+  keyword-only;
+
+and two more found by comparing the packages' signatures
+(``tests/test_torch_imports.py::test_port_takes_the_jax_parameters``):
+
+* ``featuremap.evaluate_batched`` takes ``take_fn``, the pluggable probe
+  gather;
+* ``matching.featuremap`` re-exports ``dt_from_indicator``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -293,3 +300,41 @@ def test_mesh_is_the_last_positional_parameter():
     assert_same_matches(ot.match_many_async(*args, mesh)(), positional, exact=True)
     with pytest.raises(TypeError):
         ot.match_many(*args, None, "cpu")
+
+
+def test_evaluate_batched_take_fn_matches_jax():
+    """The same custom gather (wrap-around instead of the clamp) through
+    both packages: bit-equal scores.  The stack holds small integers, so
+    the packages' line sums are exact in any order; the probes leave the
+    stack, so the gather changes the scores."""
+    rng = np.random.default_rng(10)
+    d, h, w = 3, 16, 20
+    dt3 = rng.integers(0, 50, d * h * w).astype(np.float32)
+    si = rng.integers(0, d, (2, 5, 7)).astype(np.int32)
+    ep = rng.uniform(-4, 24, (2, 5, 7, 2, 2)).astype(np.float32)
+    lm = rng.uniform(size=(2, 5, 7)) < 0.8
+    trs = rng.uniform(-30, 30, (2, 5, 9, 2)).astype(np.float32)
+    n = dt3.size
+    jx = [jnp.asarray(x) for x in (si, ep, lm, trs)]
+    tx = [torch.as_tensor(x) for x in (si, ep, lm, trs)]
+    want = np.asarray(jfm.evaluate_batched(
+        jnp.asarray(dt3), (h, w), *jx, take_fn=lambda f, i: jnp.take(f, i % n)))
+    got = tfm.evaluate_batched(torch.as_tensor(dt3), (h, w), *tx,
+                               take_fn=lambda f, i: f[i % n])
+    np.testing.assert_array_equal(got.numpy(), want)
+    clamped = tfm.evaluate_batched(torch.as_tensor(dt3), (h, w), *tx)
+    np.testing.assert_array_equal(
+        clamped.numpy(), np.asarray(jfm.evaluate_batched(jnp.asarray(dt3), (h, w), *jx)))
+    assert not torch.equal(got, clamped)
+
+
+def test_featuremap_reexports_dt_from_indicator():
+    from openfdcm_tpu_torch.matching.featuremap import dt_from_indicator
+    rng = np.random.default_rng(11)
+    ind = np.where(rng.uniform(size=(2, 24, 31)) < 0.03, 0.0,
+                   np.finfo(np.float32).max).astype(np.float32)
+    for metric in (of.Distance.L1, of.Distance.L2, of.Distance.L2_SQUARED):
+        want = np.asarray(jfm.dt_from_indicator(jnp.asarray(ind), metric=metric))
+        got = dt_from_indicator(torch.as_tensor(ind),
+                                metric=getattr(ot.Distance, metric.name))
+        np.testing.assert_array_equal(got.numpy(), want)
