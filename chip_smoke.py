@@ -139,7 +139,20 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
    kernel call's rows, K1 and the tile copy (K5, K6) launched in each
    rank's process, ``global_topk`` on a ``("cand", 4)`` mesh over the
    ranks equal to phase 27's on every rank; each rank's wall beside the
-   single-process meshed wall.
+   single-process meshed wall;
+32. (run last) limits: K3's device-table variants against their plain
+   version on the card, bit-equal — ``prop_shared`` on bank 0's 10-scene
+   640² builds at depths 100 and 180, a seeded 500-step list at depth 30
+   and a 1816-deep 64² stack, ``prop_global`` one deeper and on a depth-1817
+   ``match_many`` of scene 0 (equal to the same path on K3's plain
+   version), each launched where its depth sends it; the 40-scene slice at
+   depth 180 under generations 4 (twice), 2 and 3 — launches, every
+   planted template in its top-10, the generations agreeing, scene 0 equal
+   to the CPU, scenes/s, a profile; ``distance_transform`` (L2, L2²) of a
+   seeded 16,400 x 1,080 canvas whose right edge lies over 2^12 px from
+   every seed, and of its transpose, on K2's wide variant, bit-equal to the
+   plain version; ``optimize_candidates(take_fn=clamped gather)`` on phase
+   30's candidates equal to the ``take_fn=None`` call and to the CPU.
 
 Phase 3 also holds one dense 64-lane K1 call against the plain version,
 and phase 4 adds DenseOptimize and the host ranking path; every CUDA
@@ -209,7 +222,22 @@ KERNELS = {
     "K6_window_v3": (ops_window_v3.window_v3, ops_window_v3.window_v3_plain,
                      "openfdcm_tpu_torch/csrc/window_v3.cu",
                      "openfdcm_tpu/ops/window_kernel.py:438"),
+    # the variants beyond K2's 16384 px and K3's parameter table (phase 32)
+    "K2_minplus_rows_wide": (ops_minplus.minplus_rows_wide,
+                             ops_minplus.minplus_rows_plain,
+                             "openfdcm_tpu_torch/csrc/minplus.cu",
+                             "openfdcm_tpu/ops/minplus_kernel.py:121"),
+    "K3_propagate_orientation_shared": (ops_prop.propagate_orientation_shared,
+                                        ops_prop.propagate_orientation_plain,
+                                        "openfdcm_tpu_torch/csrc/prop.cu",
+                                        "openfdcm_tpu/ops/prop_kernel.py:47"),
+    "K3_propagate_orientation_global": (ops_prop.propagate_orientation_global,
+                                        ops_prop.propagate_orientation_plain,
+                                        "openfdcm_tpu_torch/csrc/prop.cu",
+                                        "openfdcm_tpu/ops/prop_kernel.py:47"),
 }
+LIMIT_KERNELS = ("K2_minplus_rows_wide", "K3_propagate_orientation_shared",
+                 "K3_propagate_orientation_global")
 BUILD_KERNELS = ("K2_minplus_rows", "K3_propagate_orientation", "K4_sweep_stack")
 # kernels whose plain version is exact and runs on the card
 PLAIN_ON_CARD = BUILD_KERNELS + ("K1_tile_stack",)
@@ -224,8 +252,8 @@ SEARCH_KERNELS = {2: ("K5_window_v2", "K1_tile_stack"),
                   4: ("K1_window_scores", "K1_tile_stack")}
 # the kernels' names in a profile (K1's "window_kernel" is no substring of
 # K5's or K6's name)
-PROFILE_NAMES = ("edt_rows_kernel", "prop_fixed", "prop_any",
-                 "sweep_paths_kernel", "window_kernel", "tile_kernel",
+PROFILE_NAMES = ("edt_rows_kernel", "prop_fixed", "prop_any", "prop_shared",
+                 "prop_global", "sweep_paths_kernel", "window_kernel", "tile_kernel",
                  "window_v2_kernel", "window_v3_kernel")
 # generation -> (module, main-pass entry, extension-pass entry, kernel wrapper)
 GEN_ENTRIES = {2: (ops_window_v2, "window_scores_v2", "window_scores_v2_ext",
@@ -394,9 +422,9 @@ def work(name, args, kw):
     x = args[0]
     if name == "K1_tile_stack":
         return nbytes(x) + 4 * int(np.prod(ops_window.tile_shape(x.shape))), 0
-    if name == "K2_minplus_rows":
+    if name.startswith("K2_"):
         return 2 * nbytes(x), 24 * x.numel()
-    if name == "K3_propagate_orientation":
+    if name.startswith("K3_"):
         return 2 * nbytes(x), 2 * len(args[1]) * x.numel() // x.shape[-3]
     return 2 * nbytes(x) + nbytes(*args[1:]), x.numel()
 
@@ -588,6 +616,8 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
 
     report = {}
     for name, (kernel, plain, _, _) in KERNELS.items():
+        if name in LIMIT_KERNELS:
+            continue
         calls = cases[name]
         check(calls, f"no {name} call was recorded")
         n_bad, err, shapes = 0, 0.0, []
@@ -1306,7 +1336,9 @@ def phase_profile(banks, params, searcher, optimizer, penalty, device, report,
 
 KERNEL_SHORT = {"K1_window_scores": "K1", "K1_tile_stack": "copy",
                 "K2_minplus_rows": "K2", "K3_propagate_orientation": "K3",
-                "K4_sweep_stack": "K4", "K5_window_v2": "K5", "K6_window_v3": "K6"}
+                "K4_sweep_stack": "K4", "K5_window_v2": "K5", "K6_window_v3": "K6",
+                "K2_minplus_rows_wide": "K2w", "K3_propagate_orientation_shared": "K3s",
+                "K3_propagate_orientation_global": "K3g"}
 
 
 def short(launches):
@@ -2427,6 +2459,319 @@ def phase_native(banks, root, tmpl_paths, scene_paths):
           f"{native.library_path().name}")
 
 
+# ---------------------------------------------------------------------------
+# phase 32: K3 at any depth, K2 beyond 16384 px, optimize_candidates(take_fn)
+# ---------------------------------------------------------------------------
+
+DEEP = 180                                   # the depth-180 slice
+WIDE = (16400, 1080)                         # the wide canvas (W, H)
+
+
+def hold_calls(name, calls, labels, say):
+    """Recorded calls of a phase-32 variant against its plain version on
+    the card, each on fresh copies: per call a line with its mismatches,
+    time, bound and plain time; returns the kernels-line entry (sums over
+    the calls)."""
+    kernel, plain = KERNELS[name][:2]
+    total = dict(mismatches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                 bound_ms=0.0)
+    by = set()
+    for (args, kw), what in zip(calls, labels):
+        got = kernel(*fresh(args), **kw)
+        want = plain(*fresh(args), **kw)
+        torch.cuda.synchronize()
+        n_bad, err = mismatches(got, want), max_abs_err(got, want)
+        del got, want
+        ms = cuda_ms(lambda a=fresh(args): kernel(*a, **kw), 5)
+        p_ms = cuda_ms(lambda a=fresh(args): plain(*a, **kw), 1)
+        b_ms, b_by, b_each = bound(name, [(args, kw)])
+        say(f"{name} {what}: mismatches {n_bad}, max_abs_err {err}, "
+              f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{100 * b_ms / ms:.1f} % of it reached), plain {p_ms:.4f} ms "
+              f"(bytes, operations {b_each[0]})")
+        check(n_bad == 0, f"{name} {what}: {n_bad} elements differ from the "
+              f"plain version")
+        total["mismatches"] += n_bad
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        total["ms"] += ms
+        total["plain_ms"] += p_ms
+        total["bound_ms"] += b_ms
+        by.add(b_by)
+    return dict(total, bound_by="bytes" if "bytes" in by else "operations",
+                library_ms=None)
+
+
+def deep_builds(scenes, device, seed):
+    """K3's calls beyond its parameter table, recorded from builds of
+    ``scenes``: at depths 100 and :data:`DEEP`, and a seeded 500-step list
+    on the depth-30 stack; with their labels."""
+    calls, labels = [], []
+    for depth in (100, DEEP, 30):
+        params = of.Dt3Params(depth, 5.0, 1.0, of.Distance.L2)
+        with Recorder({"K3": (fm_mod, "k3_relax")}) as rec:
+            of.build_featuremap_batch(scenes, params, device=device)
+        torch.cuda.synchronize()
+        check(len(rec.calls["K3"]) == 1, f"depth {depth}: "
+              f"{len(rec.calls['K3'])} K3 calls in a {len(scenes)}-scene build")
+        (dt3, steps), kw = rec.calls["K3"][0]
+        if depth == 30:
+            rng = np.random.default_rng(seed)
+            pairs = rng.integers(0, 30, (500, 2))
+            steps = tuple((int(a), int(b), float(np.float32(w))) for (a, b), w
+                          in zip(pairs, rng.uniform(0, 3, 500)))
+        check(ops_prop.variant(depth, len(steps)) == "shared",
+              f"depth {depth}, {len(steps)} steps: not prop_shared's")
+        calls.append(((dt3, steps), kw))
+        labels.append(f"{tuple(dt3.shape)}, {len(steps)} steps"
+                      + (" (a seeded list)" if depth == 30 else ""))
+    return calls, labels
+
+
+def edge_depths(device, seed, say):
+    """The deepest stack ``prop_shared`` takes and one beyond it, each on a
+    1 x 64 x 64 canvas through ``propagate_orientation``: the variant the
+    depth names is launched, bit-equal to the plain version."""
+    calls, labels = {"shared": [], "global": []}, {"shared": [], "global": []}
+    for depth in (ops_prop.MAX_SHARED_DEPTH, ops_prop.MAX_SHARED_DEPTH + 1):
+        kind = ops_prop.variant(depth, 4 * depth)
+        gen = torch.Generator(device=device).manual_seed(seed + depth)
+        x = torch.rand((1, depth, 64, 64), generator=gen, device=device) * 100
+        x0 = x.clone()
+        steps = fm_mod.propagation_steps(fm_mod.make_angles(depth), 5.0)
+        want = ops_prop.propagate_orientation_plain(x, steps)
+        _, wall, launches = timed(lambda: ops_prop.propagate_orientation(x, steps))
+        name = f"K3_propagate_orientation_{kind}"
+        others = {k: v for k, v in launches.items() if v and k != name}
+        check(launches[name] == 1 and not others,
+              f"depth {depth}: launches {short(launches)}, not one {name}")
+        check(mismatches(x, want) == 0, f"depth {depth}: K3 differs from plain")
+        say(f"propagate_orientation at depth {depth} "
+              f"(1 x {depth} x 64 x 64, {len(steps)} steps): one {kind} "
+              f"launch, bit-equal to the plain version, {wall * 1e3:.3f} ms")
+        calls[kind].append(((x0, steps), {}))
+        labels[kind].append(f"(1, {depth}, 64, 64), {len(steps)} steps")
+    return calls, labels
+
+
+def deep_slice(banks, searcher, optimizer, penalty, device, say):
+    """The 40-scene slice at depth :data:`DEEP` under generations 4 (twice),
+    2 and 3: launches, planted hits, generations agree, scene 0 equal to
+    the CPU; one more generation-4 run under the profiler."""
+    params = of.Dt3Params(DEEP, 5.0, 1.0, of.Distance.L2)
+    n_scenes = sum(len(s) for _, s, _ in banks)
+    runs, first_launches = {}, None
+    for version in (4, 4, 2, 3):
+        with generation(version):
+            res, launches, syncs, st, wall, _ = timed_run(
+                banks, params, searcher, optimizer, penalty, device)
+        check_launched(launches, SEARCH_KERNELS[version] + (
+            "K2_minplus_rows", "K3_propagate_orientation_shared", "K4_sweep_stack"),
+            f"depth {DEEP}, generation {version}")
+        check(launches["K3_propagate_orientation"] == 0
+              and launches["K3_propagate_orientation_global"] == 0,
+              f"depth {DEEP}: K3 launches {short(launches)}")
+        again = runs.get(version)
+        hits = check_topk(banks, res, again)
+        check(hits == n_scenes, f"depth {DEEP}, generation {version}: planted "
+              f"template in {hits} of {n_scenes} top-{TOP_K}s")
+        say(f"depth-{DEEP} slice, generation {version}"
+              f"{' (run 2)' if again else ''}: launches {short(launches)}, "
+              f"host syncs {syncs}, planted {hits}/{n_scenes}, {wall:.4f} s, "
+              f"{n_scenes / wall:.3f} scenes/s, stages (s) {stage_line(st)}")
+        if again is None:
+            runs[version] = res
+        if first_launches is None:
+            first_launches = launches
+    compare_generations(f"depth {DEEP}, {type(optimizer).__name__}", runs)
+    templates, scenes, _ = banks[0]
+    bank, lengths = make_bank(templates, "cpu")
+    t0 = time.perf_counter()
+    with generation(4):
+        cpu = of.match_many(scenes[:1], bank, params, searcher, optimizer,
+                            penalty=penalty, template_lengths=lengths,
+                            top_k=TOP_K, device="cpu")
+    n = same_lists([cpu], [runs[4][0][:1]], f"depth {DEEP}, scene 0 vs the CPU")
+    say(f"depth-{DEEP} slice, scene 0: {n} top-{TOP_K} rows equal "
+          f"the CPU's exactly (CPU {time.perf_counter() - t0:.1f} s)")
+    with generation(4):
+        rows, wall = profiled(lambda: run_slice(banks, params, searcher,
+                                                optimizer, penalty, device, None))
+    busy = sum(r[2] for r in rows)
+    say(f"profile, depth-{DEEP} slice, generation 4: wall "
+          f"{wall * 1e3:.3f} ms (profiled), device busy {busy:.3f} ms "
+          f"({busy / (wall * 1e3):.3f} of wall)")
+    for name, count, ms in rows[:8]:
+        say(f"profile {ms:10.3f} ms {count:7d}x  {name[:100]}")
+    k3 = [r for r in rows if "prop_shared" in r[0]]
+    check(k3, f"the depth-{DEEP} profile shows no prop_shared launch")
+    n3, ms3 = sum(r[1] for r in k3), sum(r[2] for r in k3)
+    say(f"K3 (prop_shared) in the depth-{DEEP} slice: "
+          f"{first_launches['K3_propagate_orientation_shared']} launches a run, "
+          f"{ms3:.3f} ms of device time over {n3} in the profile "
+          f"({ms3 / max(n3, 1):.4f} ms per 10-scene launch)")
+    return first_launches
+
+
+def deepest_path(banks, searcher, optimizer, penalty, device, say):
+    """Bank 0's scene 0 through ``match_many`` at depth 1817, beyond
+    ``prop_shared``: ``prop_global`` launched, the top-10 equal to the same
+    path with K3's plain version; returns the launches and the recorded
+    K3 call."""
+    depth = ops_prop.MAX_SHARED_DEPTH + 1
+    params = of.Dt3Params(depth, 5.0, 1.0, of.Distance.L2)
+    templates, scenes, _ = banks[0]
+    bank, lengths = make_bank(templates, device)
+    run = lambda: of.match_many(scenes[:1], bank, params, searcher, optimizer,
+                                penalty=penalty, template_lengths=lengths,
+                                top_k=TOP_K, device=device)
+    with generation(4), Recorder({"K3": (fm_mod, "k3_relax")}) as rec:
+        got, wall, launches = timed(run)
+    check(launches["K3_propagate_orientation_global"] > 0
+          and launches["K3_propagate_orientation_shared"] == 0,
+          f"depth {depth}: K3 launches {short(launches)}")
+    saved = fm_mod.k3_relax
+    fm_mod.k3_relax = lambda dt3, steps: dt3.copy_(
+        ops_prop.propagate_orientation_plain(dt3, steps))
+    try:
+        with generation(4):
+            want = run()
+    finally:
+        fm_mod.k3_relax = saved
+    n = same_lists([got], [want], f"depth {depth} vs plain K3")
+    check(n > 0, f"depth {depth}: an empty top-{TOP_K}")
+    say(f"match_many at depth {depth}, bank 0 scene 0: launches "
+          f"{short(launches)}, {wall:.4f} s, {n} top-{TOP_K} rows equal the "
+          f"same path on K3's plain version")
+    (dt3, steps), kw = rec.calls["K3"][0]
+    return launches, ((dt3, steps), kw), f"{tuple(dt3.shape)}, {len(steps)} steps"
+
+
+def wide_scene(seed, w, h, reach, n=400):
+    """``n`` lines of 10-200 px centred in ``[0, reach) x [0, h)`` of a ``w
+    x h`` canvas: the pixels right of ``reach + 4096`` lie more than 2^12 px
+    from every seed."""
+    rng = np.random.default_rng([seed, w, h])
+    c = rng.uniform(0, 1, (n, 2)) * (reach, h)
+    ang = rng.uniform(0, np.pi, n)
+    half = rng.uniform(10.0, 200.0, n)[:, None] / 2
+    d = np.stack([np.cos(ang), np.sin(ang)], -1) * half
+    return np.concatenate([c - d, c + d], -1).astype(np.float32)
+
+
+def wide_canvases(device, seed, say):
+    """``distance_transform`` (L2, L2²) of a seeded 16400 x 1080 canvas and
+    of its transpose: one K2 wide launch each, no 32-bit one; the recorded
+    calls with their labels."""
+    from openfdcm_tpu_torch.core import dt as core_dt
+    w, h = WIDE
+    lines = wide_scene(seed, w, h, reach=11000)
+    calls, labels, launched = [], [], 0
+    for size, arr in (((w, h), lines), ((h, w), lines[:, [1, 0, 3, 2]])):
+        for metric in (of.Distance.L2, of.Distance.L2_SQUARED):
+            # recorded through core.dt's name: the wrapper counts its
+            # launches through its own module-global name
+            with Recorder({"K2": (dt_mod, "minplus_rows")}) as rec:
+                out, wall, launches = timed(lambda: core_dt.distance_transform(
+                    arr, size, metric, device=device))
+            check(launches["K2_minplus_rows_wide"] == 1
+                  and launches["K2_minplus_rows"] == 0,
+                  f"distance_transform {size}: K2 launches {short(launches)}")
+            far = float(out.max()) if metric == of.Distance.L2 else \
+                float(out.max()) ** 0.5
+            check(out.shape == (size[1], size[0])
+                  and bool(torch.isfinite(out).all()),
+                  f"distance_transform {size} {metric.name}: bad result")
+            if size == WIDE:
+                check(far > 4096, f"no pixel beyond 2^12 px of a seed ({far})")
+            say(f"distance_transform {size[0]} x {size[1]} "
+                  f"{metric.name}: {len(arr)} lines, one K2 wide launch, "
+                  f"farthest pixel {far:.1f} px from a seed, {wall * 1e3:.3f} ms")
+            check(len(rec.calls["K2"]) == 1, f"distance_transform {size}: "
+                  f"{len(rec.calls['K2'])} K2 calls recorded")
+            launched += launches["K2_minplus_rows_wide"]
+            calls += rec.calls["K2"]
+            labels.append(f"{size[0]} x {size[1]} {metric.name}")
+    return calls, labels, launched
+
+
+def take_fn_check(banks, params, searcher, device, say):
+    """``optimize_candidates(take_fn=clamped gather)`` on phase 29's
+    candidates: equal to the ``take_fn=None`` call (scores rel 3e-7, valid
+    and translations equal) and to the same call on the CPU, bit for bit;
+    no window kernel launched."""
+    from openfdcm_tpu_torch.matching.match import _bucket, _scene_candidates
+    templates, scenes, _ = banks[0]
+    bank, _ = make_bank(templates, device)
+    fm = of.build_featuremap(scenes[0], params, device=device)
+    pairs = pipeline_mod._bank_pairs_for_scene(searcher, bank, scenes[0])
+    lines, mask, align, _, _ = _scene_candidates(
+        bank, pairs, scenes[0], _bucket(pairs.shape[0], 64))
+    w, h = fm.feature_size
+    kw = dict(mode="batch", window=10, dense_steps=1)
+    out = {}
+    for dev in (device, "cpu"):
+        flat = fm.dt3.reshape(-1).to(dev)
+        n = flat.numel()
+        args = (flat, fm.angles.to(dev), fm.scene_translation.to(dev),
+                fm.dt3.shape[1:], np.float32([w, h]), lines.to(dev),
+                mask.to(dev), align.to(dev))
+        with generation(4):
+            out[dev], wall, launches = timed(lambda: opt_mod.optimize_candidates(
+                *args, **kw, take_fn=lambda f, i: f[i.clamp(0, n - 1)]))
+            if dev == device:
+                check(not launches["K1_window_scores"] and not launches["K1_tile_stack"],
+                      f"optimize-api take_fn: launches {short(launches)}")
+                ref, wall_ref, _ = timed(lambda: opt_mod.optimize_candidates(
+                    *args, **kw))
+                got_wall = wall
+    scores, trans, valid = out[device]
+    check(torch.equal(valid, ref[2]) and torch.equal(trans, ref[1]),
+          "take_fn: valid or translations differ from take_fn=None")
+    rel = ((scores - ref[0]).abs() / ref[0].abs().clamp_min(1e-30))[valid]
+    check(float(rel.max()) <= 3e-7, f"take_fn: scores rel {float(rel.max())}")
+    n_cpu = sum(mismatches(a, b) for a, b in zip(out[device], out["cpu"]))
+    check(n_cpu == 0, f"take_fn: {n_cpu} values differ from the CPU")
+    say(f"optimize_candidates(take_fn=clamped gather), "
+          f"BatchOptimize(10), {lines.shape[0]} candidates: no window kernel, "
+          f"{int(valid.sum())} valid rows equal take_fn=None's (scores rel "
+          f"{float(rel.max()):.3g}, {mismatches(scores, ref[0])} differ), equal "
+          f"to the CPU bit for bit; {got_wall * 1e3:.3f} ms (take_fn=None "
+          f"{wall_ref * 1e3:.3f} ms)")
+
+
+def phase_limits(banks, params, searcher, optimizer, penalty, device, seed,
+                 card):
+    """Phase 32: K3's device-table variants and K2's wide one against their
+    plain versions on the card, the 40-scene slice at depth 180, a depth-1817
+    path, wide canvases, and ``optimize_candidates(take_fn=)``; every line
+    names ``card``.  Returns the kernels-line entries and launches of the
+    three variants."""
+    say = lambda msg: print(f"[limits] {msg} ({card})")
+    templates, scenes, _ = banks[0]
+    k3, labels = deep_builds(scenes, device, seed)
+    edge, edge_labels = edge_depths(device, seed, say)
+    report = {"K3_propagate_orientation_shared": hold_calls(
+        "K3_propagate_orientation_shared", k3 + edge["shared"],
+        labels + edge_labels["shared"], say)}
+    del k3
+    slice_launches = deep_slice(banks, searcher, optimizer, penalty, device, say)
+    deep_launches, deep_call, deep_label = deepest_path(
+        banks, searcher, optimizer, penalty, device, say)
+    report["K3_propagate_orientation_global"] = hold_calls(
+        "K3_propagate_orientation_global", [deep_call] + edge["global"],
+        [deep_label] + edge_labels["global"], say)
+    del deep_call
+    k2, k2_labels, k2_launches = wide_canvases(device, seed, say)
+    report["K2_minplus_rows_wide"] = hold_calls("K2_minplus_rows_wide", k2,
+                                                k2_labels, say)
+    take_fn_check(banks, params, searcher, device, say)
+    launches = {
+        "K3_propagate_orientation_shared": slice_launches["K3_propagate_orientation_shared"],
+        "K3_propagate_orientation_global": deep_launches["K3_propagate_orientation_global"],
+        "K2_minplus_rows_wide": k2_launches}
+    return report, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2474,9 +2819,12 @@ def main(argv=None) -> int:
         phase_profile_serving(banks, *cfg)
     phase_core_api(banks, device, args.seed)
     phase_optimize_api(banks, params, searcher, device)
+    limit_report, limit_launches = phase_limits(banks, *cfg, args.seed, card)
+    report.update(limit_report)
     # each kernel's count from the run of the path it serves
     launches["K5_window_v2"] = by_gen[2]["K5_window_v2"]
     launches["K6_window_v3"] = by_gen[3]["K6_window_v3"]
+    launches.update(limit_launches)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (_, _, src, rep) in KERNELS.items()]

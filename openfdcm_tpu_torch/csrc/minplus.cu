@@ -43,6 +43,14 @@
 // beyond 4096 px) rounding can reorder candidates, and the kernel takes the
 // scan's minimum over the sources within sqrt(value) + 2 of x, which holds
 // every candidate that can round to or below the winner.
+//
+// Canvases with a side above 16384 (the column-pass distance g enters the
+// envelope squared, so a tall canvas counts too) run the same kernel on
+// Wide arithmetic (fdcm_minplus_rows_wide): 64-bit keys and costs, 128-bit
+// cross products, 64-bit scratch entries (s and g_s as two 32-bit halves),
+// and a scan radius sqrt(value) + 2 widened by sqrt(value) / 2^22, which
+// covers the candidates' rounding at any value; d^2 rounds through double
+// as the band scan's Python scalar does (the same f32 wherever d^2 < 2^53).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,46 +67,98 @@ __device__ __forceinline__ float min_prop(float a, float b) {
   return (b < a || b != b) ? b : a;
 }
 
-__device__ __forceinline__ int cost(int x, int s, int gs) {
-  return (x - s) * (x - s) + gs * gs;
+// The envelope's arithmetic: keys and costs, their cross products, a
+// scratch entry.  Narrow: |N| and f below 2^29 (sides <= kMaxSide).
+struct Narrow {
+  using Key = int;
+  using Prod = long long;
+  using Entry = uint32_t;
+  using Pos = int;  // a stack entry's offset, q * kWarp
+  static constexpr bool kWide = false;
+  __device__ static __forceinline__ void unpack(Entry e, int& s, int& gs) {
+    s = (int)(e & 0xffffu);
+    gs = (int)(e >> 16);
+  }
+  __device__ static __forceinline__ Entry pack(int s, int gs) {
+    return (uint32_t)s | ((uint32_t)gs << 16);
+  }
+};
+
+// Wide: sides up to 2^31 - 1; keys below 2^63, products in 128 bits.
+struct Wide {
+  using Key = long long;
+  using Prod = __int128;
+  using Entry = unsigned long long;
+  using Pos = long long;
+  static constexpr bool kWide = true;
+  __device__ static __forceinline__ void unpack(Entry e, int& s, int& gs) {
+    s = (int)(uint32_t)e;
+    gs = (int)(uint32_t)(e >> 32);
+  }
+  __device__ static __forceinline__ Entry pack(int s, int gs) {
+    return (Entry)(uint32_t)s | ((Entry)(uint32_t)gs << 32);
+  }
+};
+
+template <class A>
+__device__ __forceinline__ typename A::Key cost(int x, int s, int gs) {
+  using Key = typename A::Key;
+  const Key d = x - s;
+  return d * d + (Key)gs * gs;
 }
 
-__device__ __forceinline__ int key(int s, int gs) { return s * s + gs * gs; }
+template <class A>
+__device__ __forceinline__ typename A::Key key(int s, int gs) {
+  using Key = typename A::Key;
+  return (Key)s * s + (Key)gs * gs;
+}
 
 // One candidate of the band scan: fl(fl(g^2) + fl(d^2)).
+template <class A>
 __device__ __forceinline__ float scan_value(float gs, int d) {
-  const float df = (float)d;
-  return __fadd_rn(__fmul_rn(gs, gs), __fmul_rn(df, df));
+  float dd;
+  if constexpr (A::kWide) {
+    dd = __double2float_rn(__ll2double_rn((long long)d * d));
+  } else {
+    const float df = (float)d;
+    dd = __fmul_rn(df, df);
+  }
+  return __fadd_rn(__fmul_rn(gs, gs), dd);
 }
 
-// The band scan's minimum at x over the sources within sqrt(exact) + 2.
+// The band scan's minimum at x over the sources within its radius of x.
+template <class A>
 __device__ __noinline__ float scan_min(const float* __restrict__ grow, int w,
-                                       int x, int exact) {
-  const int r = (int)sqrtf((float)exact) + 2;
-  const int lo = max(0, x - r), hi = min(w - 1, x + r);
+                                       int x, typename A::Key exact) {
+  int lo, hi;
+  if constexpr (A::kWide) {
+    const double root = sqrt((double)exact);
+    const long long r = (long long)root + 2 + (long long)(root * 0x1p-22);
+    lo = (int)max(0LL, x - r);
+    hi = (int)min(w - 1LL, x + r);
+  } else {
+    const int r = (int)sqrtf((float)exact) + 2;
+    lo = max(0, x - r);
+    hi = min(w - 1, x + r);
+  }
   float best = __int_as_float(0x7f800000);  // +inf
   for (int s = lo; s <= hi; ++s)
-    best = min_prop(best, scan_value(__ldg(grow + s), x - s));
+    best = min_prop(best, scan_value<A>(__ldg(grow + s), x - s));
   return best;
 }
 
-__device__ __forceinline__ void unpack(uint32_t e, int& s, int& gs) {
-  s = (int)(e & 0xffffu);
-  gs = (int)(e >> 16);
-}
-
-__device__ __forceinline__ uint32_t pack(int s, int gs) {
-  return (uint32_t)s | ((uint32_t)gs << 16);
-}
-
+template <class A>
 __global__ void __launch_bounds__(kWarp)
 edt_rows_kernel(const float* __restrict__ g, float* __restrict__ out,
-                uint32_t* __restrict__ scratch, long long n, int w,
+                typename A::Entry* __restrict__ scratch, long long n, int w,
                 int take_sqrt) {
+  using Key = typename A::Key;
+  using Prod = typename A::Prod;
+  using Pos = typename A::Pos;
   __shared__ float tile[kWarp * kPitch];
   const int lane = threadIdx.x;
   // this lane's entry q lives at stack[q * kWarp]
-  uint32_t* stack = scratch + (size_t)blockIdx.x * w * kWarp + lane;
+  typename A::Entry* stack = scratch + (size_t)blockIdx.x * w * kWarp + lane;
   const long long n_blocks = (n + kWarp - 1) / kWarp;
   for (long long blk = blockIdx.x; blk < n_blocks; blk += gridDim.x) {
     const long long row0 = blk * kWarp;
@@ -108,7 +168,8 @@ edt_rows_kernel(const float* __restrict__ g, float* __restrict__ out,
 
     // forward: the envelope; entries 0..q, top (sq, gq), below it (sp, gp),
     // with their keys s^2 + g^2 (N(i, u) = key(u) - key(i))
-    int q = -1, sq = 0, gq = 0, kq = 0, sp = 0, gp = 0, kp = 0;
+    int q = -1, sq = 0, gq = 0, sp = 0, gp = 0;
+    Key kq = 0, kp = 0;
     for (int c0 = 0; c0 < w; c0 += kWarp) {
       const int cols = min(kWarp, w - c0);
       __syncwarp();
@@ -120,16 +181,17 @@ edt_rows_kernel(const float* __restrict__ g, float* __restrict__ out,
         for (int j = 0; j < cols; ++j) {
           const float gf = tile[lane * kPitch + j];
           if (!(gf < kF32Max)) continue;            // seedless column
-          const int u = c0 + j, gu = (int)gf, ku = key(u, gu);
-          while (q >= 1 && (long long)(ku - kq) * (sq - sp) <=
-                               (long long)(kq - kp) * (u - sq)) {
+          const int u = c0 + j, gu = (int)gf;
+          const Key ku = key<A>(u, gu);
+          while (q >= 1 && (Prod)(ku - kq) * (sq - sp) <=
+                               (Prod)(kq - kp) * (u - sq)) {
             --q;
             sq = sp;
             gq = gp;
             kq = kp;
             if (q >= 1) {
-              unpack(stack[(q - 1) * kWarp], sp, gp);
-              kp = key(sp, gp);
+              A::unpack(stack[(Pos)(q - 1) * kWarp], sp, gp);
+              kp = key<A>(sp, gp);
             }
           }
           ++q;
@@ -139,7 +201,7 @@ edt_rows_kernel(const float* __restrict__ g, float* __restrict__ out,
           sq = u;
           gq = gu;
           kq = ku;
-          stack[q * kWarp] = pack(u, gu);
+          stack[(Pos)q * kWarp] = A::pack(u, gu);
         }
       }
     }
@@ -152,15 +214,15 @@ edt_rows_kernel(const float* __restrict__ g, float* __restrict__ out,
           const int x = c0 + j;
           float v = kF32Max;                         // no finite source
           if (q >= 0) {
-            while (q >= 1 && cost(x, sp, gp) <= cost(x, sq, gq)) {
+            while (q >= 1 && cost<A>(x, sp, gp) <= cost<A>(x, sq, gq)) {
               --q;
               sq = sp;
               gq = gp;
-              if (q >= 1) unpack(stack[(q - 1) * kWarp], sp, gp);
+              if (q >= 1) A::unpack(stack[(Pos)(q - 1) * kWarp], sp, gp);
             }
-            const int exact = cost(x, sq, gq);
-            v = exact < kExact ? scan_value((float)gq, x - sq)
-                               : scan_min(grow, w, x, exact);
+            const Key exact = cost<A>(x, sq, gq);
+            v = exact < kExact ? scan_value<A>((float)gq, x - sq)
+                               : scan_min<A>(grow, w, x, exact);
             if (take_sqrt) v = sqrtf(v);
           }
           tile[lane * kPitch + j] = v;
@@ -175,20 +237,41 @@ edt_rows_kernel(const float* __restrict__ g, float* __restrict__ out,
   }
 }
 
-}  // namespace
-
-// g, out: (n, w) float32 rows.  scratch: room for scratch_blocks blocks'
-// stacks, 32 * w 32-bit words each; the grid is that many blocks at most,
-// each taking every scratch_blocks-th group of 32 rows.
-extern "C" int fdcm_minplus_rows(const float* g, float* out, uint32_t* scratch,
-                                 long long scratch_blocks, long long n, int w,
-                                 int take_sqrt, cudaStream_t stream) {
-  if (n <= 0 || w <= 0 || w > kMaxSide || !scratch || scratch_blocks <= 0)
+template <class A>
+int launch_rows(const float* g, float* out, typename A::Entry* scratch,
+                long long scratch_blocks, long long n, int w, int take_sqrt,
+                cudaStream_t stream) {
+  if (n <= 0 || w <= 0 || (!A::kWide && w > kMaxSide) || !scratch ||
+      scratch_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   const long long n_blocks = (n + kWarp - 1) / kWarp;
   long long grid = n_blocks < scratch_blocks ? n_blocks : scratch_blocks;
   if (grid > 0x7fffffffLL) grid = 0x7fffffffLL;
-  edt_rows_kernel<<<(unsigned)grid, kWarp, 0, stream>>>(g, out, scratch, n, w,
-                                                       take_sqrt);
+  edt_rows_kernel<A><<<(unsigned)grid, kWarp, 0, stream>>>(g, out, scratch, n,
+                                                          w, take_sqrt);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// g, out: (n, w) float32 rows.  scratch: room for scratch_blocks blocks'
+// stacks, 32 * w 32-bit words each; the grid is that many blocks at most,
+// each taking every scratch_blocks-th group of 32 rows.  Columns of g below
+// kMaxSide (w and the values both).
+extern "C" int fdcm_minplus_rows(const float* g, float* out, uint32_t* scratch,
+                                 long long scratch_blocks, long long n, int w,
+                                 int take_sqrt, cudaStream_t stream) {
+  return launch_rows<Narrow>(g, out, scratch, scratch_blocks, n, w, take_sqrt,
+                             stream);
+}
+
+// As fdcm_minplus_rows on Wide arithmetic, for any side: scratch entries of
+// 64 bits.
+extern "C" int fdcm_minplus_rows_wide(const float* g, float* out,
+                                      unsigned long long* scratch,
+                                      long long scratch_blocks, long long n,
+                                      int w, int take_sqrt,
+                                      cudaStream_t stream) {
+  return launch_rows<Wide>(g, out, scratch, scratch_blocks, n, w, take_sqrt,
+                           stream);
 }

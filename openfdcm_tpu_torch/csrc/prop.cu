@@ -22,6 +22,15 @@
 // * prop_any, for any other depth <= 96 or step list: the vector in shared
 //   memory ([d][thread], conflict-free), loads and stores unrolled by 8 so
 //   eight are in flight, step indices and weights kernel parameters.
+// Deeper stacks or longer step lists (fdcm_prop_table) read the steps from
+// a device table (int32 c1, c2 and the f32 weights' bits, one row each):
+// * prop_shared, while 32 threads' vectors fit the block's opt-in shared
+//   memory (1816 orientations in the H100's 227 KB): prop_any's layout and
+//   loads, the block as wide as the shared memory allows (a multiple of
+//   32, at most 128 threads);
+// * prop_global, beyond that: each thread applies the steps in place to
+//   its pixel's vector in device memory (a simple kernel, no reuse but
+//   the caches').
 // The update is in place: each thread reads its pixels' D values before it
 // writes any, and no two threads share a pixel.  Loads and stores are
 // coalesced along the pixel axis.
@@ -116,6 +125,56 @@ prop_any(float* __restrict__ stack, const Steps s, int nsteps, int depth,
   for (d = 0; d < depth; ++d) px[d * hw] = v[d * kThreads];
 }
 
+// The step table's row k of an (3, nsteps) int32 table: c1, c2, w's bits.
+struct StepTable {
+  const int* t;
+  int n;
+  __device__ __forceinline__ int c1(int k) const { return __ldg(t + k); }
+  __device__ __forceinline__ int c2(int k) const { return __ldg(t + n + k); }
+  __device__ __forceinline__ float w(int k) const {
+    return __int_as_float(__ldg(t + 2 * n + k));
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+prop_shared(float* __restrict__ stack, const StepTable s, int depth,
+            long long hw, long long total) {
+  extern __shared__ float vec[];  // [depth][blockDim.x]
+  const int nt = blockDim.x;
+  const long long p = (long long)blockIdx.x * nt + threadIdx.x;
+  if (p >= total) return;  // no block-wide barrier below
+  const long long st = p / hw;
+  float* px = stack + st * depth * hw + (p - st * hw);
+  float* v = vec + threadIdx.x;
+  int d = 0;
+  for (; d + 8 <= depth; d += 8) {
+    float r[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r[j] = px[(d + j) * hw];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[(d + j) * nt] = r[j];
+  }
+  for (; d < depth; ++d) v[d * nt] = px[d * hw];
+  for (int k = 0; k < s.n; ++k) {
+    const int a = s.c1(k), b = s.c2(k);
+    v[b * nt] = min_prop(v[b * nt], __fadd_rn(v[a * nt], s.w(k)));
+  }
+  for (d = 0; d < depth; ++d) px[d * hw] = v[d * nt];
+}
+
+__global__ void __launch_bounds__(kThreads)
+prop_global(float* __restrict__ stack, const StepTable s, int depth,
+            long long hw, long long total) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= total) return;
+  const long long st = p / hw;
+  float* px = stack + st * depth * hw + (p - st * hw);
+  for (int k = 0; k < s.n; ++k) {
+    float* dst = px + s.c2(k) * hw;
+    *dst = min_prop(*dst, __fadd_rn(px[s.c1(k) * hw], s.w(k)));
+  }
+}
+
 // true when (c1, c2) is the reference's pattern for depth d
 bool reference_pattern(const int* c1, const int* c2, int nsteps, int d) {
   if (nsteps != forward_steps(d) + backward_steps(d)) return false;
@@ -168,3 +227,38 @@ extern "C" int fdcm_prop(float* stack, const int* c1, const int* c2,
   return (int)cudaGetLastError();
 }
 
+
+// In place on stack (n_stacks, depth, hw), any depth and step list.  table:
+// a device (3, nsteps) int32 table (c1, c2, the weights' f32 bits), indices
+// in [0, depth).  shared: 1 for prop_shared, 0 for prop_global.  Returns a
+// cudaError_t; 1 (cudaErrorInvalidValue) on a shape prop_shared cannot
+// hold in this card's shared memory at 32 threads.
+extern "C" int fdcm_prop_table(float* stack, const int* table, int nsteps,
+                               int depth, long long hw, long long n_stacks,
+                               int shared, cudaStream_t stream) {
+  if (depth <= 0 || hw <= 0 || n_stacks <= 0 || nsteps < 0 || !table)
+    return (int)cudaErrorInvalidValue;
+  const StepTable s = {table, nsteps};
+  const long long total = n_stacks * hw;
+  if (!shared) {
+    prop_global<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0,
+                  stream>>>(stack, s, depth, hw, total);
+    return (int)cudaGetLastError();
+  }
+  int dev = 0, optin = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (rc != cudaSuccess) return (int)rc;
+  const long long column = (long long)depth * sizeof(float);
+  long long threads = optin / column / 32 * 32;
+  if (threads > kThreads) threads = kThreads;
+  if (threads < 32) return (int)cudaErrorInvalidValue;
+  const size_t bytes = (size_t)(threads * column);
+  rc = cudaFuncSetAttribute(prop_shared, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            (int)bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  prop_shared<<<(unsigned)((total + threads - 1) / threads), (unsigned)threads,
+                bytes, stream>>>(stack, s, depth, hw, total);
+  return (int)cudaGetLastError();
+}

@@ -104,16 +104,16 @@ def optimize_candidates(dt3_flat, angles, scene_tr, hw, feature_size,
     one scene: the window kernel of its generation (K1, K5 or K6) on the
     tiled copy, and K1 for the walks and the dense sweep.
 
-    ``take_fn``: the JAX package's gather hook, through which its
-    row-sharded search reads the stack.  The port's row-sharded search
-    reads its blocks its own way (:mod:`~openfdcm_tpu_torch.parallel.spatial`),
-    so only ``None`` is accepted.
+    ``take_fn``: the JAX package's probe gather, ``take_fn(dt3_flat,
+    idx)``, given every probe's unclamped flat index ``(2, L, C * K)``
+    (endpoint, line, candidate-major lane) and returning their values as a
+    clamped gather would.  With one, every window runs K1's arithmetic in
+    plain ops through it (the JAX package's runs XLA there, not Pallas);
+    ``None`` runs the kernels.
 
     Returns ``(scores (C,), translations (C, 2), valid (C,))``."""
     from .optimize_kernel import optimize_candidates_batch_kernel
-    if take_fn is not None:
-        raise TypeError("optimize_candidates: take_fn is not supported; the "
-                        "row-sharded search is parallel.search_spatial")
+    take = None if take_fn is None else lambda idx: take_fn(dt3_flat, idx)
     dev = dt3_flat.device
     as_dev = lambda x, dtype=torch.float32: torch.as_tensor(x, dtype=dtype,
                                                             device=dev)
@@ -122,7 +122,7 @@ def optimize_candidates(dt3_flat, angles, scene_tr, hw, feature_size,
         as_dev(scene_tr).reshape(1, 2), as_dev(feature_size).reshape(1, 2),
         as_dev(tmpl_lines)[None], as_dev(line_mask, torch.bool)[None],
         as_dev(align_vecs)[None], mode=mode, window=window,
-        dense_steps=dense_steps)
+        dense_steps=dense_steps, take=take)
     return tuple(x[0] for x in out)
 
 

@@ -99,31 +99,39 @@ def window_scores_plain(li, ep, sid, wt, tr, v, t0, *, count: int,
     """Plain PyTorch version, any device: a Python loop over lines so the
     sum runs in line order, bit-equal to the kernel.
 
-    ``take``: optional reader of the stack's values at flat indices,
-    clamped into the stack as the default gather clamps them (the
-    row-sharded search's gather, :mod:`openfdcm_tpu_torch.parallel.spatial`);
-    ``li`` then stands for the stack through its ``shape`` and ``device``
-    only."""
+    ``take``: optional reader of the stack's values (the JAX package's
+    ``take_fn`` layout): called once with every probe's unclamped flat
+    index, ``(2, L, M * count)`` (endpoint, line, candidate-major lane), it
+    returns their values, clamping into the stack as the default gather
+    does (the row-sharded search's gather,
+    :mod:`openfdcm_tpu_torch.parallel.spatial`); ``li`` then stands for the
+    stack through its ``shape`` and ``device`` only."""
     m_count, n_lines = wt.shape
     q_w = li.shape[-1]
     hw = li.shape[-2] * q_w
-    if take is None:
-        flat = li.reshape(-1)
-        take = lambda idx: flat[idx.clamp(0, flat.numel() - 1)]
     mult = t0[:, None] + lane_steps(count, two_sided, li.device)[None, :]
     trx = tr[:, 0:1] + mult * v[:, 0:1]                      # (M, K)
     tr_y = tr[:, 1:2] + mult * v[:, 1:2]
+
+    def index(j, ix, iy):
+        xi = to_int_trunc(ep[:, j, ix:ix + 1] + trx)
+        yi = to_int_trunc(ep[:, j, iy:iy + 1] + tr_y)
+        return sid[:, j:j + 1].to(torch.int64) * hw + yi * q_w + xi
+
+    if take is None:
+        flat = li.reshape(-1)
+        probes = lambda j: [flat[index(j, *e).clamp(0, flat.numel() - 1)]
+                            for e in ((0, 1), (2, 3))]
+    elif n_lines:
+        idx = torch.stack([torch.stack([index(j, 0, 1), index(j, 2, 3)])
+                           for j in range(n_lines)], dim=1)   # (2, L, M, K)
+        vals = take(idx.reshape(2, n_lines, -1)).reshape(idx.shape)
+        probes = lambda j: vals[:, j]
     acc = torch.zeros((m_count, count), dtype=torch.float32, device=li.device)
     for j in range(n_lines):
         w = wt[:, j:j + 1]
-        base = sid[:, j:j + 1].to(torch.int64) * hw
-
-        def probe(ix, iy):
-            xi = to_int_trunc(ep[:, j, ix:ix + 1] + trx)
-            yi = to_int_trunc(ep[:, j, iy:iy + 1] + tr_y)
-            return take(base + yi * q_w + xi)
-
-        contrib = (probe(0, 1) - probe(2, 3)).abs() * w
+        a, b = probes(j)
+        contrib = (a - b).abs() * w
         acc = acc + torch.where(w != 0, contrib, torch.zeros_like(contrib))
     return acc
 

@@ -110,16 +110,17 @@ def test_k3_mirror_and_in_place_wrapper(depth, h, w, pixels):
 
 def test_k3_other_step_lists_in_place():
     """A step list that is not the reference pattern (the general kernel's
-    case) runs the plain chain, in place, on the CPU too."""
+    case), and one longer than its 384 steps (the device-table kernels'),
+    runs the plain chain, in place, on the CPU too."""
     rng = np.random.default_rng(3)
     dt3 = rng.uniform(0, 60, (7, 5, 6)).astype(np.float32)
     steps = tfm.propagation_steps(tfm.make_angles(7), 2.0)[::-1]
-    want = tprop.propagate_orientation_plain(torch.tensor(dt3), steps)
-    x = torch.tensor(dt3)
-    assert tprop.propagate_orientation(x, steps) is x
-    np.testing.assert_array_equal(x.numpy(), want.numpy())
-    with pytest.raises(ValueError, match="steps"):
-        tprop.propagate_orientation(x, steps * 14)
+    for chain in (steps, steps * 14):
+        want = tprop.propagate_orientation_plain(torch.tensor(dt3), chain)
+        x = torch.tensor(dt3)
+        assert tprop.propagate_orientation(x, chain) is x
+        np.testing.assert_array_equal(x.numpy(), want.numpy())
+    assert tprop.variant(7, len(steps * 14)) == "shared"
 
 
 def test_line_integral_stack_bit_equal_padded_canvas():

@@ -786,3 +786,106 @@ def test_native_runtime_on_the_card_host(tmp_path):
         search._pair_by_length(tl, sl, np.arange(60), 4, 10),
         search._pair_by_length_plain(tl, sl, np.arange(60), 4, 10))
     assert native.library_path().exists()
+
+
+def _launch_counts():
+    return (prop.propagate_orientation.launches,
+            prop.propagate_orientation_shared.launches,
+            prop.propagate_orientation_global.launches)
+
+
+@pytest.mark.parametrize("depth,n_steps,kind", [
+    (97, None, "shared"), (180, None, "shared"), (30, 500, "shared"),
+    (prop.MAX_SHARED_DEPTH, None, "shared"),
+    (prop.MAX_SHARED_DEPTH + 1, None, "global"), (12, 5000, "shared")])
+def test_prop_table_variants_bit_equal(depth, n_steps, kind):
+    """K3 beyond its parameter table: ``propagate_orientation`` picks the
+    variant :func:`variant` names (only its launch counter moves), in
+    place, bit-equal to the plain version, NaN propagating."""
+    rng = np.random.default_rng(depth)
+    h, w = (40, 72) if depth < 1000 else (5, 7)
+    x = torch.as_tensor(rng.uniform(0, 100, (2, depth, h, w)).astype(np.float32))
+    x[1, 3, 2, 1] = float("nan")
+    if n_steps is None:
+        steps = tfm.propagation_steps(tfm.make_angles(depth), 5.0)
+    else:
+        c = rng.integers(0, depth, (n_steps, 2))
+        steps = [(int(a), int(b), float(v))
+                 for (a, b), v in zip(c, rng.uniform(0, 3, n_steps))]
+    assert prop.variant(depth, len(steps)) == kind
+    before = _launch_counts()
+    dev = x.cuda()
+    assert prop.propagate_orientation(dev, steps) is dev
+    moved = [a - b for a, b in zip(_launch_counts(), before)]
+    assert moved == [0, int(kind == "shared"), int(kind == "global")]
+    _same(dev, prop.propagate_orientation_plain(x, steps))
+
+
+def test_prop_global_any_depth_bit_equal():
+    """``prop_global`` called directly at a depth the other kernels take."""
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.uniform(0, 100, (3, 30, 17, 23)).astype(np.float32))
+    steps = tfm.propagation_steps(tfm.make_angles(30), 5.0)
+    before = prop.propagate_orientation_global.launches
+    _same(prop.propagate_orientation_global(x.cuda(), steps),
+          prop.propagate_orientation_plain(x, steps))
+    assert prop.propagate_orientation_global.launches == before + 1
+
+
+@pytest.mark.parametrize("sqrt", [False, True])
+@pytest.mark.parametrize("shape", [(3, 40, 16400), (16400, 40), (2, 9, 20000)])
+def test_minplus_wide_bit_equal(shape, sqrt):
+    """K2 on canvases with a side above 16384: ``minplus_rows`` runs the
+    64-bit variant (only its counter moves), bit-equal to the plain
+    version, with pixels far beyond 2^12 px of their nearest seed."""
+    g = _column_pass(2, shape, 3e-4)
+    if shape[-1] > 16384:
+        g[..., 0, :] = F32_MAX
+        g[..., 0, 3] = 7.0                  # one seed at the row's start
+    before = (minplus.minplus_rows.launches, minplus.minplus_rows_wide.launches)
+    got = minplus.minplus_rows(g, sqrt=sqrt)
+    after = (minplus.minplus_rows.launches, minplus.minplus_rows_wide.launches)
+    assert after == (before[0], before[1] + 1)
+    _same(got, minplus.minplus_rows_plain(g, sqrt=sqrt))
+
+
+def test_minplus_narrow_sides_keep_the_32_bit_kernel():
+    g = _column_pass(3, (16384, 24), 1e-3)
+    before = (minplus.minplus_rows.launches, minplus.minplus_rows_wide.launches)
+    _same(minplus.minplus_rows(g, sqrt=True), minplus.minplus_rows_plain(g, sqrt=True))
+    assert (minplus.minplus_rows.launches,
+            minplus.minplus_rows_wide.launches) == (before[0] + 1, before[1])
+
+
+def test_optimize_candidates_take_fn_cuda_matches_cpu(monkeypatch):
+    """``optimize_candidates(take_fn=clamped gather)`` on the card: equal to
+    the CPU bit for bit, and to the ``take_fn=None`` call (K1) within rel
+    3e-7 (the plain windows sum in K1's line order)."""
+    from openfdcm_tpu_torch.matching import optimize as topt
+    from openfdcm_tpu_torch.matching.match import _bucket, _scene_candidates
+    from openfdcm_tpu_torch.matching.pipeline import _bank_pairs_for_scene
+    monkeypatch.setenv("OPENFDCM_TPU_KERNEL_VERSION", "4")
+    scenes, templates = _two_scene_problem()
+    params = ot.Dt3Params(8, 5.0, 1.5, ot.Distance.L2)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fm = ot.build_featuremap(scenes[0], params, pad_to=256, device=dev)
+        bank = ot.prepare_templates(templates, device=dev)
+        pairs = _bank_pairs_for_scene(ot.DefaultSearch(3, 5), bank, scenes[0])
+        lines, mask, align, _, _ = _scene_candidates(
+            bank, pairs, scenes[0], _bucket(pairs.shape[0], 64))
+        n = fm.dt3.numel()
+        args = (fm.dt3.reshape(-1), fm.angles, fm.scene_translation,
+                tuple(fm.dt3.shape[1:]), np.float32(fm.feature_size), lines,
+                mask, align)
+        kw = dict(mode="batch", window=10, dense_steps=1)
+        out[dev] = topt.optimize_candidates(
+            *args, **kw, take_fn=lambda f, i: f[i.clamp(0, n - 1)])
+        if dev == "cuda":
+            out["kernel"] = topt.optimize_candidates(*args, **kw)
+    for g, c in zip(out["cuda"], out["cpu"]):
+        _same(g, c)
+    valid = out["cuda"][2]
+    assert torch.equal(valid, out["kernel"][2]) and bool(valid.any())
+    torch.testing.assert_close(out["cuda"][0][valid], out["kernel"][0][valid],
+                               rtol=3e-7, atol=0)

@@ -129,8 +129,11 @@ def test_other_devices_and_bad_inputs_raise():
         minplus.minplus_rows(meta, sqrt=False)
     with pytest.raises(ValueError, match="contiguous"):
         minplus.minplus_rows(torch.zeros((8, 2)).t(), sqrt=False)
-    with pytest.raises(ValueError, match="16384"):
-        minplus.minplus_rows(torch.zeros((1, 16385)), sqrt=False)
+    # no side cap: a 16385-px row takes the plain version on the CPU
+    wide = torch.full((1, 16385), torch.finfo(torch.float32).max)
+    wide[0, 7] = 2.0
+    assert torch.equal(minplus.minplus_rows(wide, sqrt=False),
+                       minplus.minplus_rows_plain(wide, sqrt=False))
     with pytest.raises(ValueError, match="table"):
         integral.sweep_stack(torch.zeros((1, 2, 4, 6)), np.zeros((1, 6), np.int32),
                              np.array([[1, 0, 0], [0, 1, 1]]))

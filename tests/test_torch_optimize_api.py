@@ -104,11 +104,20 @@ def test_optimize_candidates_matches_jax(case, jax_results, name, version,
     np.testing.assert_allclose(scores[valid], want_s[valid], rtol=3e-7, atol=0)
 
 
-def test_optimize_candidates_takes_no_gather_hook(case):
+def test_optimize_candidates_takes_no_gather_hook(case, monkeypatch):
+    """``take_fn`` is the JAX package's gather hook: a clamped gather
+    through it gives the ``take_fn=None`` result under generation 4 bit for
+    bit (K1's arithmetic in plain ops, in K1's line order), every mode."""
     inputs, kw = case
+    monkeypatch.setenv("OPENFDCM_TPU_KERNEL_VERSION", "4")
     args = [torch.as_tensor(v) if k != "hw" else v for k, v in inputs.items()]
-    with pytest.raises(TypeError, match="take_fn"):
-        topt.optimize_candidates(*args, **kw["batch"], take_fn=lambda *a: None)
+    n = inputs["dt3_flat"].size
+    for name in sorted(OPTIMIZERS):
+        want = topt.optimize_candidates(*args, **kw[name])
+        got = topt.optimize_candidates(
+            *args, **kw[name], take_fn=lambda f, i: f[i.clamp(0, n - 1)])
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_optimize_is_optimize_candidates(case):

@@ -31,7 +31,15 @@ and two more found by comparing the packages' signatures
 
 * ``featuremap.evaluate_batched`` takes ``take_fn``, the pluggable probe
   gather;
-* ``matching.featuremap`` re-exports ``dt_from_indicator``.
+* ``matching.featuremap`` re-exports ``dt_from_indicator``;
+
+and three calls the JAX package answers and the port refused:
+
+* K3's relaxation at any depth and with any step list (the port capped
+  both at the kernel's parameter table, 96 and 384, on every device);
+* ``distance_transform`` on canvases with a side above 16,384 px (K2's
+  32-bit arithmetic capped both sides, on every device);
+* ``optimize.optimize_candidates(..., take_fn=f)``, the gather hook.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -39,12 +47,15 @@ import pytest
 import torch
 
 import openfdcm_tpu as of
+from openfdcm_tpu.core import dt as jdt
 from openfdcm_tpu.core import integral as jintegral
 from openfdcm_tpu.matching import featuremap as jfm
 import openfdcm_tpu_torch as ot
+from openfdcm_tpu_torch.core import dt as tdt
 from openfdcm_tpu_torch.core import integral as tintegral
 from openfdcm_tpu_torch.core.geometry import pow_f32
 from openfdcm_tpu_torch.matching import featuremap as tfm
+from openfdcm_tpu_torch.matching import optimize as topt
 from openfdcm_tpu_torch.matching import optimize_kernel as tok
 from openfdcm_tpu_torch.matching import pipeline as tpipe
 from tests.torch_cases import assert_same_matches, three_scene_problem
@@ -338,3 +349,63 @@ def test_featuremap_reexports_dt_from_indicator():
         got = dt_from_indicator(torch.as_tensor(ind),
                                 metric=getattr(ot.Distance, metric.name))
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_relax_takes_any_depth_and_step_list():
+    """Depth 100 (400 steps) and a 500-step list at depth 12: bit-equal to
+    the JAX package's chain; a depth-100 build on the CPU."""
+    rng = np.random.default_rng(12)
+    for depth, steps in ((100, None), (12, 500)):
+        dt3 = rng.uniform(0, 30, (1, depth, 8, 12)).astype(np.float32)
+        if steps is None:
+            steps = tfm.propagation_steps(tfm.make_angles(depth), 5.0)
+        else:
+            c = rng.integers(0, depth, (steps, 2))
+            steps = tuple((int(a), int(b), float(np.float32(x)))
+                          for (a, b), x in zip(c, rng.uniform(0, 2, steps)))
+        want = np.asarray(jfm.propagate_orientation_relax(jnp.asarray(dt3), steps))
+        got = tfm.propagate_orientation_relax(torch.as_tensor(dt3), steps)
+        np.testing.assert_array_equal(got.numpy(), want)
+    scenes, _ = _small_canvas_problem()
+    fm = ot.build_featuremap(scenes[0], ot.Dt3Params(100, 5.0, 1.0, ot.Distance.L2),
+                             device="cpu")
+    assert fm.dt3.shape[0] == 100 and bool(torch.isfinite(fm.dt3).all())
+
+
+def test_distance_transform_above_16384_px():
+    """Every pixel within 4096 px of a seed (beyond, the JAX package's CPU
+    row pass fuses ``g² + d²``: ``tests/test_torch_limits.py``)."""
+    x = np.arange(0, 16400, 400, dtype=np.float32)
+    lines = np.stack([x, x * 0 + 1, x + 60, x * 0 + 6], 1)
+    for size in ((16400, 8), (8, 16400)):
+        arr = lines if size[0] > size[1] else lines[:, [1, 0, 3, 2]]
+        want = np.asarray(jdt.distance_transform(arr, size, of.Distance.L2))
+        got = tdt.distance_transform(arr, size, ot.Distance.L2, device="cpu")
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_optimize_candidates_takes_a_gather_hook():
+    """A clamped gather through ``take_fn`` gives the ``take_fn=None``
+    result (generation 4, bit for bit); a gather from the reversed stack
+    gives another."""
+    scenes, templates = three_scene_problem()
+    fm = ot.build_featuremap(scenes[0], ot.Dt3Params(6, 5.0, 1.0, ot.Distance.L2),
+                             pad_to=64, device="cpu")
+    lines = np.stack([templates[0][:6] + np.float32(8.0), templates[1][:6]])
+    mask = np.ones((2, 6), bool)
+    align = np.float32([[1.0, 0.5], [-0.3, 1.0]])
+    w, h = fm.feature_size
+    args = (fm.dt3.reshape(-1), fm.angles, fm.scene_translation,
+            tuple(fm.dt3.shape[1:]), np.float32([w, h]), lines, mask, align)
+    kw = dict(mode="default", window=32, dense_steps=1)
+    n = fm.dt3.numel()
+    want = topt.optimize_candidates(*args, **kw)
+    got = topt.optimize_candidates(*args, **kw,
+                                   take_fn=lambda f, i: f[i.clamp(0, n - 1)])
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    valid = want[2]
+    assert bool(valid.any())
+    other = topt.optimize_candidates(
+        *args, **kw, take_fn=lambda f, i: f[n - 1 - i.clamp(0, n - 1)])
+    assert not torch.equal(other[0][valid], want[0][valid])
