@@ -145,14 +145,23 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
    640² builds at depths 100 and 180, a seeded 500-step list at depth 30
    and a 1816-deep 64² stack, ``prop_global`` one deeper and on a depth-1817
    ``match_many`` of scene 0 (equal to the same path on K3's plain
-   version), each launched where its depth sends it; the 40-scene slice at
-   depth 180 under generations 4 (twice), 2 and 3 — launches, every
-   planted template in its top-10, the generations agreeing, scene 0 equal
-   to the CPU, scenes/s, a profile; ``distance_transform`` (L2, L2²) of a
-   seeded 16,400 x 1,080 canvas whose right edge lies over 2^12 px from
-   every seed, and of its transpose, on K2's wide variant, bit-equal to the
-   plain version; ``optimize_candidates(take_fn=clamped gather)`` on phase
-   30's candidates equal to the ``take_fn=None`` call and to the CPU.
+   version), each launched where its depth sends it; ``prop_any`` on the
+   10-scene builds at depths 36 and 90 (named in a profile); on the depth-30
+   stack, seeded lists that write an index again 2 steps after writing it
+   (read 2 steps ahead) or hold ``c1 == c2`` steps, at 120-300 steps
+   (``prop_any``) and 480-500 (``prop_shared``), and on ``prop_global``;
+   the 40-scene slice at depth 180 under generations 4 (twice), 2 and 3 —
+   launches, every planted template in its top-10, the generations
+   agreeing, scene 0 equal to the CPU, scenes/s, a profile;
+   ``distance_transform`` (L2, L2²) of a seeded 16,400 x 1,080 canvas whose
+   right edge lies over 2^12 px from every seed, and of its transpose, on
+   K2's wide variant, and of a seeded 12,000 x 1,080 canvas with its lines
+   within x < 6,000, and its transpose, on the 32-bit K2, bit-equal to the
+   plain version; K2's far pass alone on each of these inputs (the pixels
+   deferred, the band candidates they scan, its time beside its bound),
+   bit-equal to its plain version; ``optimize_candidates(take_fn=clamped
+   gather)`` on phase 30's candidates equal to the ``take_fn=None`` call
+   and to the CPU.
 
 Phase 3 also holds one dense 64-lane K1 call against the plain version,
 and phase 4 adds DenseOptimize and the host ranking path; every CUDA
@@ -222,11 +231,20 @@ KERNELS = {
     "K6_window_v3": (ops_window_v3.window_v3, ops_window_v3.window_v3_plain,
                      "openfdcm_tpu_torch/csrc/window_v3.cu",
                      "openfdcm_tpu/ops/window_kernel.py:438"),
+    # K2's far-pixel pass, launched by every K2 call (timed in phase 32)
+    "K2_minplus_rows_far": (ops_minplus.far_pass, ops_minplus.far_pass_plain,
+                            "openfdcm_tpu_torch/csrc/minplus.cu",
+                            "openfdcm_tpu/ops/minplus_kernel.py:121"),
     # the variants beyond K2's 16384 px and K3's parameter table (phase 32)
     "K2_minplus_rows_wide": (ops_minplus.minplus_rows_wide,
                              ops_minplus.minplus_rows_plain,
                              "openfdcm_tpu_torch/csrc/minplus.cu",
                              "openfdcm_tpu/ops/minplus_kernel.py:121"),
+    # K3's general kernel behind propagate_orientation (any_launches)
+    "K3_propagate_orientation_any": (ops_prop.propagate_orientation,
+                                     ops_prop.propagate_orientation_plain,
+                                     "openfdcm_tpu_torch/csrc/prop.cu",
+                                     "openfdcm_tpu/ops/prop_kernel.py:47"),
     "K3_propagate_orientation_shared": (ops_prop.propagate_orientation_shared,
                                         ops_prop.propagate_orientation_plain,
                                         "openfdcm_tpu_torch/csrc/prop.cu",
@@ -236,9 +254,19 @@ KERNELS = {
                                         "openfdcm_tpu_torch/csrc/prop.cu",
                                         "openfdcm_tpu/ops/prop_kernel.py:47"),
 }
-LIMIT_KERNELS = ("K2_minplus_rows_wide", "K3_propagate_orientation_shared",
+# kernels timed in phase 32 (the far pass: on far pixels, which no canvas
+# of the main path has)
+LIMIT_KERNELS = ("K2_minplus_rows_far", "K2_minplus_rows_wide",
+                 "K3_propagate_orientation_any", "K3_propagate_orientation_shared",
                  "K3_propagate_orientation_global")
+# the launch counter of each kernel: its wrapper's ``launches``, but for
+# prop_any, which propagate_orientation launches beside prop_fixed
+COUNTERS = {name: (k[0], "launches") for name, k in KERNELS.items()}
+COUNTERS["K3_propagate_orientation_any"] = (ops_prop.propagate_orientation,
+                                            "any_launches")
 BUILD_KERNELS = ("K2_minplus_rows", "K3_propagate_orientation", "K4_sweep_stack")
+# every K2 call launches the far pass
+BUILD_PATH_KERNELS = BUILD_KERNELS + ("K2_minplus_rows_far",)
 # kernels whose plain version is exact and runs on the card
 PLAIN_ON_CARD = BUILD_KERNELS + ("K1_tile_stack",)
 # the card's published peaks (H100 SXM data sheet, 700 W): HBM bytes/s and
@@ -252,7 +280,7 @@ SEARCH_KERNELS = {2: ("K5_window_v2", "K1_tile_stack"),
                   4: ("K1_window_scores", "K1_tile_stack")}
 # the kernels' names in a profile (K1's "window_kernel" is no substring of
 # K5's or K6's name)
-PROFILE_NAMES = ("edt_rows_kernel", "prop_fixed", "prop_any", "prop_shared",
+PROFILE_NAMES = ("edt_rows_kernel", "edt_far_kernel", "prop_fixed", "prop_any", "prop_shared",
                  "prop_global", "sweep_paths_kernel", "window_kernel", "tile_kernel",
                  "window_v2_kernel", "window_v3_kernel")
 # generation -> (module, main-pass entry, extension-pass entry, kernel wrapper)
@@ -412,7 +440,10 @@ def work(name, args, kw):
     each, difference, abs, weighted add) per lane and line of nonzero
     weight, K2 about 24 integer and float ops per pixel (envelope push, pops,
     pointer walk, the value, the root), K3 an add and a min per step and
-    pixel, K4 one add per cell, K1's tile copy none."""
+    pixel, K4 one add per cell,
+    K1's tile copy none; K2's far pass reads the listed rows' g and marks,
+    writes the marked pixels, and does about 5 operations a band candidate
+    (offset, its square, the add, the min, the loop)."""
     if name in WINDOW_WEIGHTS:
         wt = args[WINDOW_WEIGHTS[name]]
         lanes = kw.get("count", 128 if kw["two_sided"] else 64)
@@ -422,6 +453,9 @@ def work(name, args, kw):
     x = args[0]
     if name == "K1_tile_stack":
         return nbytes(x) + 4 * int(np.prod(ops_window.tile_shape(x.shape))), 0
+    if name == "K2_minplus_rows_far":
+        pixels, candidates, rows = ops_minplus.far_work(args[1])
+        return 4 * (2 * rows * x.shape[-1] + pixels), 5 * candidates
     if name.startswith("K2_"):
         return 2 * nbytes(x), 24 * x.numel()
     if name.startswith("K3_"):
@@ -449,6 +483,16 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def event_ms(fn):
+    """``(fn(), device ms)`` of one call between two CUDA events."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 # ---------------------------------------------------------------------------
@@ -809,14 +853,14 @@ def small_reference(banks, params, searcher, optimizer, penalty, device, label,
 
 def reset_counts():
     torch.cuda.synchronize()
-    for kernel, *_ in KERNELS.values():
-        kernel.launches = 0
+    for obj, attr in COUNTERS.values():
+        setattr(obj, attr, 0)
     opt_mod.host_sync.count = 0
 
 
 def read_counts():
     torch.cuda.synchronize()
-    return ({name: k[0].launches for name, k in KERNELS.items()},
+    return ({name: getattr(*COUNTERS[name]) for name in KERNELS},
             opt_mod.host_sync.count)
 
 
@@ -872,7 +916,7 @@ def timed_run(banks, params, searcher, optimizer, penalty, device,
 
 
 def check_path_launches(launches, version, label):
-    for name in SEARCH_KERNELS[version] + BUILD_KERNELS:
+    for name in SEARCH_KERNELS[version] + BUILD_PATH_KERNELS:
         check(launches[name] > 0, f"{label}: kernel {name} was not launched")
 
 
@@ -1337,6 +1381,7 @@ def phase_profile(banks, params, searcher, optimizer, penalty, device, report,
 KERNEL_SHORT = {"K1_window_scores": "K1", "K1_tile_stack": "copy",
                 "K2_minplus_rows": "K2", "K3_propagate_orientation": "K3",
                 "K4_sweep_stack": "K4", "K5_window_v2": "K5", "K6_window_v3": "K6",
+                "K2_minplus_rows_far": "K2f", "K3_propagate_orientation_any": "K3a",
                 "K2_minplus_rows_wide": "K2w", "K3_propagate_orientation_shared": "K3s",
                 "K3_propagate_orientation_global": "K3g"}
 
@@ -2460,30 +2505,31 @@ def phase_native(banks, root, tmpl_paths, scene_paths):
 
 
 # ---------------------------------------------------------------------------
-# phase 32: K3 at any depth, K2 beyond 16384 px, optimize_candidates(take_fn)
+# phase 32: K3 at any depth and step list, K2 beyond 16384 px and its far
+# pixels, optimize_candidates(take_fn)
 # ---------------------------------------------------------------------------
 
 DEEP = 180                                   # the depth-180 slice
 WIDE = (16400, 1080)                         # the wide canvas (W, H)
+NARROW_FAR = (12000, 1080)                   # far pixels on the 32-bit K2
 
 
 def hold_calls(name, calls, labels, say):
     """Recorded calls of a phase-32 variant against its plain version on
     the card, each on fresh copies: per call a line with its mismatches,
-    time, bound and plain time; returns the kernels-line entry (sums over
-    the calls)."""
+    time, bound and plain time (one run: the reference); returns the
+    kernels-line entry (sums over the calls)."""
     kernel, plain = KERNELS[name][:2]
     total = dict(mismatches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                  bound_ms=0.0)
     by = set()
     for (args, kw), what in zip(calls, labels):
         got = kernel(*fresh(args), **kw)
-        want = plain(*fresh(args), **kw)
-        torch.cuda.synchronize()
+        # one run of the plain version: the reference and its time
+        want, p_ms = event_ms(lambda a=fresh(args): plain(*a, **kw))
         n_bad, err = mismatches(got, want), max_abs_err(got, want)
         del got, want
         ms = cuda_ms(lambda a=fresh(args): kernel(*a, **kw), 5)
-        p_ms = cuda_ms(lambda a=fresh(args): plain(*a, **kw), 1)
         b_ms, b_by, b_each = bound(name, [(args, kw)])
         say(f"{name} {what}: mismatches {n_bad}, max_abs_err {err}, "
               f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
@@ -2658,40 +2704,166 @@ def wide_scene(seed, w, h, reach, n=400):
     return np.concatenate([c - d, c + d], -1).astype(np.float32)
 
 
-def wide_canvases(device, seed, say):
-    """``distance_transform`` (L2, L2²) of a seeded 16400 x 1080 canvas and
-    of its transpose: one K2 wide launch each, no 32-bit one; the recorded
-    calls with their labels."""
+def dt_canvases(device, seed, say, size, reach):
+    """``distance_transform`` (L2, L2²) of a seeded ``size`` canvas whose
+    lines lie within x < ``reach`` and of its transpose: one launch of the
+    K2 instance the side names (the 64-bit one above 16,384 px) and one of
+    the far pass each; the recorded calls with their labels, and the
+    instance's launches."""
     from openfdcm_tpu_torch.core import dt as core_dt
-    w, h = WIDE
-    lines = wide_scene(seed, w, h, reach=11000)
+    w, h = size
+    name = "K2_minplus_rows_wide" if max(size) > ops_minplus.MAX_SIDE \
+        else "K2_minplus_rows"
+    other = "K2_minplus_rows" if name != "K2_minplus_rows" else "K2_minplus_rows_wide"
+    lines = wide_scene(seed, w, h, reach=reach)
     calls, labels, launched = [], [], 0
-    for size, arr in (((w, h), lines), ((h, w), lines[:, [1, 0, 3, 2]])):
+    for dims, arr in (((w, h), lines), ((h, w), lines[:, [1, 0, 3, 2]])):
         for metric in (of.Distance.L2, of.Distance.L2_SQUARED):
             # recorded through core.dt's name: the wrapper counts its
             # launches through its own module-global name
             with Recorder({"K2": (dt_mod, "minplus_rows")}) as rec:
                 out, wall, launches = timed(lambda: core_dt.distance_transform(
-                    arr, size, metric, device=device))
-            check(launches["K2_minplus_rows_wide"] == 1
-                  and launches["K2_minplus_rows"] == 0,
-                  f"distance_transform {size}: K2 launches {short(launches)}")
+                    arr, dims, metric, device=device))
+            check(launches[name] == 1 and launches[other] == 0
+                  and launches["K2_minplus_rows_far"] == 1,
+                  f"distance_transform {dims}: K2 launches {short(launches)}")
             far = float(out.max()) if metric == of.Distance.L2 else \
                 float(out.max()) ** 0.5
-            check(out.shape == (size[1], size[0])
+            check(out.shape == (dims[1], dims[0])
                   and bool(torch.isfinite(out).all()),
-                  f"distance_transform {size} {metric.name}: bad result")
-            if size == WIDE:
+                  f"distance_transform {dims} {metric.name}: bad result")
+            if dims == size:
                 check(far > 4096, f"no pixel beyond 2^12 px of a seed ({far})")
-            say(f"distance_transform {size[0]} x {size[1]} "
-                  f"{metric.name}: {len(arr)} lines, one K2 wide launch, "
-                  f"farthest pixel {far:.1f} px from a seed, {wall * 1e3:.3f} ms")
-            check(len(rec.calls["K2"]) == 1, f"distance_transform {size}: "
+            say(f"distance_transform {dims[0]} x {dims[1]} "
+                  f"{metric.name}: {len(arr)} lines within x < {reach}, "
+                  f"launches {short(launches)}, farthest pixel {far:.1f} px "
+                  f"from a seed, {wall * 1e3:.3f} ms")
+            check(len(rec.calls["K2"]) == 1, f"distance_transform {dims}: "
                   f"{len(rec.calls['K2'])} K2 calls recorded")
-            launched += launches["K2_minplus_rows_wide"]
+            launched += launches[name]
             calls += rec.calls["K2"]
-            labels.append(f"{size[0]} x {size[1]} {metric.name}")
+            labels.append(f"{dims[0]} x {dims[1]} {metric.name}")
     return calls, labels, launched
+
+
+def hold_far(calls, labels, say):
+    """K2's far pass on the envelope's output of each recorded K2 call,
+    against its plain version on the card: per call the pixels deferred,
+    the band candidates they scan, mismatches, the pass's time (each run on
+    a fresh copy of the marked output, the copy's time taken off), bound
+    and plain time; returns the kernels-line entry (sums over the calls)."""
+    name = "K2_minplus_rows_far"
+    kernel, plain = KERNELS[name][:2]
+    total = dict(mismatches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                 bound_ms=0.0)
+    by = set()
+    for ((g,), kw), what in zip(calls, labels):
+        out, far = ops_minplus.envelope(g, **kw)
+        pixels, candidates, rows = ops_minplus.far_work(out)
+        check(pixels > 0, f"{name} {what}: no pixel deferred")
+        want, p_ms = event_ms(lambda: plain(g, out, far, **kw))
+        got = kernel(g, out.clone(), far, **kw)
+        torch.cuda.synchronize()
+        n_bad, err = mismatches(got, want), max_abs_err(got, want)
+        del got, want
+        scratch = out.clone()
+        ms = (cuda_ms(lambda: kernel(g, scratch.copy_(out), far, **kw), 5)
+              - cuda_ms(lambda: scratch.copy_(out), 5))
+        b_ms, b_by, _ = bound(name, [((g, out, far), kw)])
+        say(f"{name} {what}: {pixels} pixels deferred in {rows} rows, "
+            f"{candidates} band candidates scanned, one far-pass launch; "
+            f"mismatches {n_bad}, max_abs_err {err}, far pass {ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}; {100 * b_ms / max(ms, 1e-9):.1f} % "
+            f"of it reached), plain {p_ms:.4f} ms")
+        check(n_bad == 0, f"{name} {what}: {n_bad} elements differ from the "
+              f"plain version")
+        total["mismatches"] += n_bad
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        total["ms"] += ms
+        total["plain_ms"] += p_ms
+        total["bound_ms"] += b_ms
+        by.add(b_by)
+        del out, far, scratch
+    return dict(total, bound_by="bytes" if "bytes" in by else "operations",
+                library_ms=None)
+
+
+def revisit_steps(depth, n, seed):
+    """A seeded list that writes an index again 2 steps after writing it:
+    ``c2`` walks a seeded permutation of the depth axis, every fifth step
+    writes the ``c2`` of two steps before, ``c1`` is the previous ``c2`` on
+    two steps of three."""
+    rng = np.random.default_rng(seed)
+    cycle = rng.permutation(depth)
+    c2 = [int(cycle[k % depth]) for k in range(n)]
+    for k in range(2, n, 5):
+        c2[k] = c2[k - 2]
+    c1 = [c2[k - 1] if k % 3 else int(rng.integers(depth)) for k in range(n)]
+    return [(a, b, float(w)) for a, b, w in
+            zip(c1, c2, rng.uniform(0, 3, n).astype(np.float32))]
+
+
+def self_steps(depth, repeats=1):
+    """The reference pattern at ``depth``, every seventh step ``(c2, c2,
+    w)`` (``c1 == c2``), ``repeats`` times over."""
+    steps = list(fm_mod.propagation_steps(fm_mod.make_angles(depth), 5.0))
+    for k in range(3, len(steps), 7):
+        steps[k] = (steps[k][1], steps[k][1], steps[k][2])
+    return steps * repeats
+
+
+def any_builds(scenes, device, say):
+    """K3's calls from builds of ``scenes`` at depths 36 and 90, which run
+    ``prop_any`` (no unrolled instantiation): one launch each, counted as
+    ``prop_any``'s; the recorded calls with their labels and the
+    launches."""
+    calls, labels, launched = [], [], 0
+    for depth in (36, 90):
+        params = of.Dt3Params(depth, 5.0, 1.0, of.Distance.L2)
+        with Recorder({"K3": (fm_mod, "k3_relax")}) as rec:
+            _, _, launches = timed(lambda: of.build_featuremap_batch(
+                scenes, params, device=device))
+        check(len(rec.calls["K3"]) == 1
+              and launches["K3_propagate_orientation"] == 1
+              and launches["K3_propagate_orientation_any"] == 1
+              and not launches["K3_propagate_orientation_shared"],
+              f"depth {depth}: K3 calls {len(rec.calls['K3'])}, launches "
+              f"{short(launches)}")
+        (dt3, steps), kw = rec.calls["K3"][0]
+        say(f"depth {depth}, {len(scenes)}-scene build: one K3 launch, "
+            f"prop_any, read {ops_prop.read_ahead(steps)} steps ahead")
+        launched += launches["K3_propagate_orientation_any"]
+        calls.append(((dt3, steps), kw))
+        labels.append(f"{tuple(dt3.shape)}, {len(steps)} steps")
+    return calls, labels, launched
+
+
+def adversarial_lists(dt3, say):
+    """Step lists on the depth-30 stack ``dt3`` that revisit an index 2
+    steps after writing it or hold ``c1 == c2`` steps, on the kernel
+    ``propagate_orientation`` sends them to (``prop_any`` up to 384 steps,
+    ``prop_shared`` beyond) and on ``prop_global``: each launched there,
+    bit-equal to the plain version."""
+    depth = dt3.shape[-3]
+    lists = {"revisit, 300 steps": (revisit_steps(depth, 300, 11), 2),
+             "revisit, 500 steps": (revisit_steps(depth, 500, 11), 2),
+             "c1 == c2, 120 steps": (self_steps(depth), 8),
+             "c1 == c2, 480 steps": (self_steps(depth, 4), 8)}
+    for label, (steps, ahead) in lists.items():
+        check(ops_prop.read_ahead(steps) == ahead,
+              f"{label}: read-ahead {ops_prop.read_ahead(steps)}, not {ahead}")
+        kind = ops_prop.variant(depth, len(steps))
+        name = {"param": "K3_propagate_orientation",
+                "shared": "K3_propagate_orientation_shared"}[kind]
+        _, _, launches = timed(lambda: ops_prop.propagate_orientation(
+            dt3.clone(), steps))
+        want = {name: 1, "K3_propagate_orientation_any": int(kind == "param")}
+        check(all(v == want.get(k, 0) for k, v in launches.items()),
+              f"{label}: launches {short(launches)}, not one {name}")
+        what = f"{tuple(dt3.shape)}, {label}, {ahead} steps ahead"
+        hold_calls(name, [((dt3, steps), {})], [what], say)
+        hold_calls("K3_propagate_orientation_global", [((dt3, steps), {})],
+                   [what], say)
 
 
 def take_fn_check(banks, params, searcher, device, say):
@@ -2742,18 +2914,28 @@ def take_fn_check(banks, params, searcher, device, say):
 def phase_limits(banks, params, searcher, optimizer, penalty, device, seed,
                  card):
     """Phase 32: K3's device-table variants and K2's wide one against their
-    plain versions on the card, the 40-scene slice at depth 180, a depth-1817
-    path, wide canvases, and ``optimize_candidates(take_fn=)``; every line
-    names ``card``.  Returns the kernels-line entries and launches of the
-    three variants."""
+    plain versions on the card, ``prop_any`` on builds at depths 36 and 90,
+    step lists that test the read-ahead, the 40-scene slice at depth 180, a
+    depth-1817 path, wide canvases and far pixels on the 32-bit K2 (with
+    the far pass held alone), and ``optimize_candidates(take_fn=)``; every
+    line names ``card``.  Returns the kernels-line entries of the phase-32
+    kernels and the launches of the four variants (``prop_any``'s on the
+    depth-36 and depth-90 builds)."""
     say = lambda msg: print(f"[limits] {msg} ({card})")
     templates, scenes, _ = banks[0]
     k3, labels = deep_builds(scenes, device, seed)
+    stack30 = k3[2][0][0]
     edge, edge_labels = edge_depths(device, seed, say)
     report = {"K3_propagate_orientation_shared": hold_calls(
         "K3_propagate_orientation_shared", k3 + edge["shared"],
         labels + edge_labels["shared"], say)}
     del k3
+    any_calls, any_labels, any_launches = any_builds(scenes, device, say)
+    report["K3_propagate_orientation_any"] = hold_calls(
+        "K3_propagate_orientation_any", any_calls, any_labels, say)
+    del any_calls
+    adversarial_lists(stack30, say)
+    del stack30
     slice_launches = deep_slice(banks, searcher, optimizer, penalty, device, say)
     deep_launches, deep_call, deep_label = deepest_path(
         banks, searcher, optimizer, penalty, device, say)
@@ -2761,11 +2943,17 @@ def phase_limits(banks, params, searcher, optimizer, penalty, device, seed,
         "K3_propagate_orientation_global", [deep_call] + edge["global"],
         [deep_label] + edge_labels["global"], say)
     del deep_call
-    k2, k2_labels, k2_launches = wide_canvases(device, seed, say)
+    k2, k2_labels, k2_launches = dt_canvases(device, seed, say, WIDE, 11000)
     report["K2_minplus_rows_wide"] = hold_calls("K2_minplus_rows_wide", k2,
                                                 k2_labels, say)
+    narrow, narrow_labels, _ = dt_canvases(device, seed, say, NARROW_FAR, 6000)
+    hold_calls("K2_minplus_rows", narrow, narrow_labels, say)
+    report["K2_minplus_rows_far"] = hold_far(narrow + k2, narrow_labels + k2_labels,
+                                             say)
+    del k2, narrow
     take_fn_check(banks, params, searcher, device, say)
     launches = {
+        "K3_propagate_orientation_any": any_launches,
         "K3_propagate_orientation_shared": slice_launches["K3_propagate_orientation_shared"],
         "K3_propagate_orientation_global": deep_launches["K3_propagate_orientation_global"],
         "K2_minplus_rows_wide": k2_launches}

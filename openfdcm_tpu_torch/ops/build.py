@@ -34,10 +34,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream last
 # are c_void_p: ctypes would otherwise pass a Python int as a 32-bit int).
 SIGNATURES = {
-    "fdcm_minplus_rows": [_P, _P, _P, _L, _L, _I, _I, _P],
-    "fdcm_minplus_rows_wide": [_P, _P, _P, _L, _L, _I, _I, _P],
-    "fdcm_prop": [_P, _P, _P, _P, _I, _I, _L, _L, _P],
-    "fdcm_prop_table": [_P, _P, _I, _I, _L, _L, _I, _P],
+    "fdcm_minplus_rows": [_P, _P, _P, _P, _L, _L, _I, _I, _P],
+    "fdcm_minplus_rows_wide": [_P, _P, _P, _P, _L, _L, _I, _I, _P],
+    "fdcm_minplus_far": [_P, _P, _P, _L, _I, _I, _P],
+    "fdcm_prop": [_P, _P, _P, _P, _I, _I, _L, _L, _I, _P, _P],
+    "fdcm_prop_table": [_P, _P, _I, _I, _L, _L, _I, _I, _P],
     "fdcm_sweep_paths": [_P, _P, _P, _L, _I, _I, _I, _P],
     "fdcm_window": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                     _I, _I, _P],

@@ -19,6 +19,7 @@ from openfdcm_tpu_torch.matching import featuremap as tfm
 from openfdcm_tpu_torch.matching import pipeline as tpipe
 from openfdcm_tpu_torch.ops import prop as tprop
 from openfdcm_tpu_torch.ops.integral import sweep_stack_plain
+from tests.torch_steps import revisit_steps, self_steps
 from tests.utils import create_lines, make_rotation
 
 torch.set_num_threads(1)
@@ -121,6 +122,105 @@ def test_k3_other_step_lists_in_place():
         assert tprop.propagate_orientation(x, chain) is x
         np.testing.assert_array_equal(x.numpy(), want.numpy())
     assert tprop.variant(7, len(steps * 14)) == "shared"
+
+
+def test_k3_chain_flags_and_read_ahead_of_the_builds():
+    """The read-ahead plan of every build's step list (the port's and the
+    JAX package's, the same list): every step but the first and at most one
+    more is chained (reads the index the step before it wrote), the least
+    revisit distance is at least D/2 - 1, so the kernels read 8 steps ahead
+    from depth 18 on."""
+    for depth in list(range(1, 200)) + [1817]:
+        angles = tfm.make_angles(depth)
+        port = tfm.propagation_steps(angles, 5.0)
+        if depth <= 100:
+            jax_steps = jfm.propagation_steps(tuple(float(a) for a in angles), 5.0)
+            assert [s[:2] for s in jax_steps] == [s[:2] for s in port]
+        c1 = np.array([s[0] for s in port])
+        c2 = np.array([s[1] for s in port])
+        flags = tprop.chain_flags(port)
+        np.testing.assert_array_equal(flags[1:], c1[1:] == c2[:-1])
+        assert not flags[0] and (~flags).sum() <= 2
+        least = tprop.revisit_distance(port)
+        assert least >= depth // 2 - 1
+        assert tprop.read_ahead(port) == max(a for a in tprop.READ_AHEAD if a <= least)
+        if depth >= 18:
+            assert tprop.read_ahead(port) == 8
+
+
+def k3_relax_mirror(dt3: np.ndarray, steps, ahead: int) -> np.ndarray:
+    """``relax`` of ``csrc/prop.cu`` on every pixel of a host copy: step
+    ``m``'s operands read from the vector right after step ``m - ahead``
+    was applied (step ``m`` itself fetched a round earlier), a chained
+    step's ``c1`` taken from the carry, the NaN-propagating min in f32."""
+    *lead, d, h, w = dt3.shape
+    v = np.moveaxis(dt3.reshape(-1, d, h * w), 1, 0).reshape(d, -1).copy()
+    chain = tprop.chain_flags(steps)
+    n = len(steps)
+
+    def operands(m):
+        if m >= n:
+            return None
+        c1, c2, wgt = steps[m]
+        return v[c2].copy(), None if chain[m] else v[c1].copy()
+
+    ring = [operands(m) for m in range(ahead)]
+    carry = None
+    for m in range(n):
+        b, a = ring[m % ahead]
+        cand = (carry if chain[m] else a) + np.float32(steps[m][2])
+        carry = np.where((cand < b) | np.isnan(cand), cand, b)
+        v[steps[m][1]] = carry
+        ring[m % ahead] = operands(m + ahead)
+    out = np.moveaxis(v.reshape(d, -1, h * w), 0, 1)
+    return out.reshape(dt3.shape)
+
+
+def _k3_lists():
+    """Step lists with their read-ahead: the builds' pattern at depths 36
+    and 90 (``prop_any``), one that revisits an index 2 steps after writing
+    it, one with ``c1 == c2`` steps, a seeded random list (revisits at
+    distance 1)."""
+    rng = np.random.default_rng(5)
+    pairs = rng.integers(0, 30, (150, 2))
+    random = [(int(a), int(b), float(np.float32(x))) for (a, b), x
+              in zip(pairs, rng.uniform(0, 3, 150))]
+    return {"ref36": (36, tfm.propagation_steps(tfm.make_angles(36), 5.0), 8),
+            "ref90": (90, tfm.propagation_steps(tfm.make_angles(90), 5.0), 8),
+            "revisit": (30, revisit_steps(30, 150, 11), 2),
+            "self": (30, self_steps(30), 8),
+            "random": (30, random, 1)}
+
+
+@pytest.mark.parametrize("case", sorted(_k3_lists()))
+def test_k3_register_chain_mirror(case):
+    """The mirror of the kernels' relaxation, reading ``read_ahead(steps)``
+    steps ahead, equals the plain chain and the JAX package's relaxation bit
+    for bit, NaN included; the wrapper in place equals both too."""
+    depth, steps, ahead = _k3_lists()[case]
+    assert tprop.read_ahead(steps) == ahead
+    rng = np.random.default_rng(depth)
+    dt3 = rng.uniform(0, 60, (2, depth, 5, 6)).astype(np.float32)
+    dt3[1, 2, 3, 4] = np.nan
+    want = np.asarray(jfm.propagate_orientation_relax(jnp.asarray(dt3), steps))
+    np.testing.assert_array_equal(k3_relax_mirror(dt3, steps, ahead), want)
+    x = torch.tensor(dt3)
+    assert tprop.propagate_orientation(x, steps) is x
+    np.testing.assert_array_equal(x.numpy(), want)
+
+
+def test_k3_read_ahead_past_the_revisit_distance_is_stale():
+    """Why the read-ahead is bounded by the least revisit distance: reading
+    4 steps ahead on a list that writes an index again 2 steps after writing
+    it reads values the 2 steps between have not yet written, and the
+    result differs from the chain; 2 steps ahead it does not."""
+    steps = revisit_steps(30, 150, 11)
+    assert tprop.revisit_distance(steps) == 2
+    rng = np.random.default_rng(2)
+    dt3 = rng.uniform(0, 60, (1, 30, 4, 4)).astype(np.float32)
+    want = tprop.propagate_orientation_plain(torch.tensor(dt3), steps).numpy()
+    np.testing.assert_array_equal(k3_relax_mirror(dt3, steps, 2), want)
+    assert not np.array_equal(k3_relax_mirror(dt3, steps, 4), want)
 
 
 def test_line_integral_stack_bit_equal_padded_canvas():

@@ -15,6 +15,7 @@ from openfdcm_tpu_torch.core.types import F32_MAX
 from openfdcm_tpu_torch.matching import featuremap as tfm
 from openfdcm_tpu_torch.ops import integral, minplus, prop, window
 from openfdcm_tpu_torch.ops import window_v2, window_v3
+from torch_steps import revisit_steps, self_steps  # tests/torch_steps.py
 
 pytestmark = pytest.mark.gpu
 
@@ -889,3 +890,106 @@ def test_optimize_candidates_take_fn_cuda_matches_cpu(monkeypatch):
     assert torch.equal(valid, out["kernel"][2]) and bool(valid.any())
     torch.testing.assert_close(out["cuda"][0][valid], out["kernel"][0][valid],
                                rtol=3e-7, atol=0)
+
+
+@pytest.mark.parametrize("kind,n,variant,ahead", [
+    ("revisit", 300, "param", 2), ("revisit", 500, "shared", 2),
+    ("self", 1, "param", 8), ("self", 4, "shared", 8)])
+def test_prop_adversarial_lists_bit_equal(kind, n, variant, ahead):
+    """Step lists that revisit an index 2 steps after writing it, or read
+    and write one index in a step, on ``prop_any`` (at most 384 steps) and
+    ``prop_shared`` (more), and on ``prop_global`` called directly:
+    in place, bit-equal to the plain chain, NaN propagating, each launched
+    where :func:`prop.variant` sends the list."""
+    depth = 30
+    steps = revisit_steps(depth, n, 11) if kind == "revisit" else self_steps(depth, n)
+    assert prop.read_ahead(steps) == ahead
+    assert prop.variant(depth, len(steps)) == variant
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(rng.uniform(0, 100, (2, depth, 40, 72)).astype(np.float32))
+    x[1, 3, 2, 1] = float("nan")
+    want = prop.propagate_orientation_plain(x, steps)
+    before = _launch_counts() + (prop.propagate_orientation.any_launches,)
+    dev = x.cuda()
+    assert prop.propagate_orientation(dev, steps) is dev
+    after = _launch_counts() + (prop.propagate_orientation.any_launches,)
+    moved = [a - b for a, b in zip(after, before)]
+    param = int(variant == "param")
+    assert moved == [param, int(variant == "shared"), 0, param]
+    _same(dev, want)
+    _same(prop.propagate_orientation_global(x.cuda(), steps), want)
+
+
+@pytest.mark.parametrize("depth,w", [(36, 70), (90, 71)])
+def test_prop_any_build_depths_bit_equal(depth, w):
+    """Depths a user may choose (36 or 90 bins), the reference pattern
+    without an unrolled instantiation: ``prop_any``, read 8 steps ahead,
+    two pixels a thread on an even canvas, one on an odd one."""
+    rng = np.random.default_rng(depth)
+    x = torch.as_tensor(rng.uniform(0, 100, (3, depth, 33, w)).astype(np.float32))
+    steps = tfm.propagation_steps(tfm.make_angles(depth), 5.0)
+    assert prop.variant(depth, len(steps)) == "param"
+    assert prop.read_ahead(steps) == 8
+    dev = x.cuda()
+    before = _launch_counts() + (prop.propagate_orientation.any_launches,)
+    assert prop.propagate_orientation(dev, steps) is dev
+    after = _launch_counts() + (prop.propagate_orientation.any_launches,)
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 0, 1]
+    _same(dev, prop.propagate_orientation_plain(x, steps))
+    # the reference pattern at depth 30 runs prop_fixed: no prop_any launch
+    x30 = torch.rand((1, 30, 8, 10), device="cuda")
+    before = prop.propagate_orientation.any_launches
+    prop.propagate_orientation(x30, tfm.propagation_steps(tfm.make_angles(30), 5.0))
+    assert prop.propagate_orientation.any_launches == before
+
+
+def _far_column_pass(seed, shape, axis, reach, density=2e-3):
+    """Column-pass distances of a seeded seed image whose seeds all lie
+    below ``reach`` along ``axis`` (-1: x, -2: y), on the card: the pixels
+    beyond ``reach + 4096`` are far (2^12 px or more from every seed)."""
+    rng = np.random.default_rng(seed)
+    ind = np.where(rng.uniform(size=shape) < density, 0.0, F32_MAX).astype(np.float32)
+    far = [slice(None)] * len(shape)
+    far[axis] = slice(reach, None)
+    ind[tuple(far)] = F32_MAX
+    return _nearest_1d_l1(torch.as_tensor(ind, device="cuda"), dim=-2)
+
+
+@pytest.mark.parametrize("sqrt", [False, True])
+@pytest.mark.parametrize("shape,axis", [((2, 40, 12000), -1), ((12000, 40), -2)])
+def test_minplus_narrow_far_pixels_bit_equal(shape, axis, sqrt):
+    """The 32-bit K2 on canvases with pixels 2^12 px or more from every
+    seed: the envelope marks them (the wide rows' right end; on the tall
+    canvas, whole rows), one far-pass launch scans their bands, bit-equal
+    to the plain version."""
+    g = _far_column_pass(5, shape, axis, 6000)
+    out = minplus.envelope(g, sqrt=sqrt)[0]
+    pixels, candidates, _ = minplus.far_work(out)
+    assert pixels > 0 and candidates > pixels
+    if axis == -2:                              # rows with every pixel far
+        assert bool(minplus.far_marks(out)[0].all(dim=-1).any())
+    before = (minplus.minplus_rows.launches, minplus.minplus_rows_wide.launches,
+              minplus.far_pass.launches)
+    got = minplus.minplus_rows(g, sqrt=sqrt)
+    after = (minplus.minplus_rows.launches, minplus.minplus_rows_wide.launches,
+             minplus.far_pass.launches)
+    assert after == (before[0] + 1, before[1], before[2] + 1)
+    _same(got, minplus.minplus_rows_plain(g, sqrt=sqrt))
+
+
+@pytest.mark.parametrize("shape", [(3, 64), (2, 17000)])
+def test_minplus_every_pixel_far_bit_equal(shape):
+    """Rows whose every pixel is far (all column distances 5000) on both
+    instances, and the far pass alone against its plain version."""
+    g = torch.full(shape, 5000.0, device="cuda")
+    g[0, 1] = 4097.0
+    for sqrt in (False, True):
+        out, far = minplus.envelope(g, sqrt=sqrt)
+        assert minplus.far_work(out)[0] == g.numel()
+        want = minplus.minplus_rows_plain(g, sqrt=sqrt)
+        _same(minplus.far_pass_plain(g, out, far, sqrt=sqrt), want)
+        before = minplus.far_pass.launches
+        assert minplus.far_pass(g, out, far, sqrt=sqrt) is out
+        assert minplus.far_pass.launches == before + 1
+        _same(out, want)
+        _same(minplus.minplus_rows(g, sqrt=sqrt), want)
