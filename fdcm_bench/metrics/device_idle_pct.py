@@ -1,0 +1,9 @@
+"""Share of the traced window in which no operation ran on the device:
+100 (1 - union of the device's kernel, copy and set intervals / window).
+Reads ``device_idle_pct.batch`` and ``device_idle_pct.latency`` alike."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0 or run.trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
