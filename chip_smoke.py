@@ -264,6 +264,10 @@ LIMIT_KERNELS = ("K2_minplus_rows_far", "K2_minplus_rows_wide",
 COUNTERS = {name: (k[0], "launches") for name, k in KERNELS.items()}
 COUNTERS["K3_propagate_orientation_any"] = (ops_prop.propagate_orientation,
                                             "any_launches")
+# the walks' work, as the straggler counts name it: the program's counters
+STRAGGLER_COUNTERS = {"ext_pass": "walks.ext_candidates",
+                      "walk": "walks.lockstep_candidates",
+                      "walk_windows": "walks.windows"}
 BUILD_KERNELS = ("K2_minplus_rows", "K3_propagate_orientation", "K4_sweep_stack")
 # every K2 call launches the far pass
 BUILD_PATH_KERNELS = BUILD_KERNELS + ("K2_minplus_rows_far",)
@@ -864,55 +868,23 @@ def read_counts():
             opt_mod.host_sync.count)
 
 
-def straggler_counts(values):
-    """From the values the walks' host syncs read, in order: candidates
-    entering extension passes (the live count before each), candidates
-    entering lockstep walks (the live count after a non-empty extension
-    pass), and lockstep windows evaluated (the walks' true any-live reads)."""
-    ext_in = walk_in = windows = 0
-    after_ext = False
-    for v in values:
-        if isinstance(v, bool):
-            windows += v
-        elif after_ext:
-            walk_in, after_ext = walk_in + v, False
-        else:
-            ext_in, after_ext = ext_in + v, v > 0
-    return dict(ext_pass=ext_in, walk=walk_in, walk_windows=windows)
-
-
-@contextlib.contextmanager
-def logged_host_syncs():
-    """Record what every host sync of the walks returns (the count on the
-    function stays live: its body increments it through the module name)."""
-    real, values = opt_mod.host_sync, []
-
-    @functools.wraps(real)
-    def logged(t):
-        values.append(real(t))
-        return values[-1]
-    opt_mod.host_sync = logged
-    try:
-        yield values
-    finally:
-        real.count = logged.count
-        opt_mod.host_sync = real
-
-
 def timed_run(banks, params, searcher, optimizer, penalty, device,
               top_k=TOP_K):
     """One run of the path with the counts set to 0 just before it and read
     just after: ``(results, launches, host syncs, stage totals, wall s,
-    straggler counts)``."""
+    straggler counts)``; the straggler counts are the program's walk
+    counters (``of.profiling.counts()``) over the run."""
     timer = of.StageTimer()
-    with logged_host_syncs() as values:
-        reset_counts()
-        t0 = time.perf_counter()
-        results = run_slice(banks, params, searcher, optimizer, penalty,
-                            device, timer, top_k)
-        wall = time.perf_counter() - t0
-        launches, syncs = read_counts()
-    return results, launches, syncs, timer.totals, wall, straggler_counts(values)
+    reset_counts()
+    before = of.profiling.counts()
+    t0 = time.perf_counter()
+    results = run_slice(banks, params, searcher, optimizer, penalty,
+                        device, timer, top_k)
+    wall = time.perf_counter() - t0
+    launches, syncs = read_counts()
+    after = of.profiling.counts()
+    strag = {k: after[c] - before[c] for k, c in STRAGGLER_COUNTERS.items()}
+    return results, launches, syncs, timer.totals, wall, strag
 
 
 def check_path_launches(launches, version, label):

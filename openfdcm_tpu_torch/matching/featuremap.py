@@ -25,6 +25,7 @@ from ..core.dt import dt_from_indicator  # noqa: F401  (re-exported, as in JAX)
 from ..core.rasterize import to_int_trunc
 from ..core.types import Distance, F32_MAX, resolve_device
 from ..ops.prop import propagate_orientation as k3_relax
+from ..profiling import to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,8 +220,8 @@ def closest_orientation_idx(angles, theta) -> torch.Tensor:
     device when it is a tensor, else on ``angles``'."""
     dev = theta.device if torch.is_tensor(theta) else (
         angles.device if torch.is_tensor(angles) else None)
-    angles = torch.as_tensor(angles, dtype=torch.float32, device=dev)
-    theta = torch.as_tensor(theta, dtype=torch.float32, device=dev)
+    angles = to_device(angles, dev, torch.float32)
+    theta = to_device(theta, dev, torch.float32)
     d = angles.shape[0]
     u = (angles <= theta[..., None]).sum(dim=-1)        # searchsorted 'right'
     interior = (u > 0) & (u < d)
@@ -244,7 +245,7 @@ def classify_lines(angles, lines: torch.Tensor) -> torch.Tensor:
     standard table ``make_angles(depth)``; only its length is read."""
     depth = len(angles)
     splits, wrap = orientation_ratio_splits(depth)
-    sp = torch.tensor(splits, dtype=torch.float32, device=lines.device)
+    sp = to_device(splits, lines.device, torch.float32)
     d = lines[..., 2:4] - lines[..., 0:2]
     r = d[..., 1] / d[..., 0]
     idx = (r[..., None] >= sp).sum(dim=-1, dtype=torch.int32)

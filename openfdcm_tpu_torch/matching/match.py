@@ -15,6 +15,7 @@ import torch
 
 from ..core import geometry as geo
 from ..core.types import resolve_device
+from ..profiling import span
 from .optimize_kernel import optimize_candidates_batch_kernel
 from .search import device_pairs
 
@@ -199,11 +200,12 @@ def _search_device_batch_topk_genpairs(tmpl_lines, tmpl_mask, top_vals, ord_t,
         pair_tl.expand(s_count, -1), sl, scenes, li, angles, scene_tr,
         feature_size, mode=mode, window=window, dense_steps=dense_steps,
         cand_ok=cand_ok)
-    tof = pair_t.repeat_interleave(2)
-    sk, mk, idx, vk = _penalized_topk(scores, mats, valid, cand_ok,
-                                      tof[None].expand(s_count, -1), lengths,
-                                      tau, k)
-    return sk, mk, tof[idx], vk
+    with span("search.topk"):
+        tof = pair_t.repeat_interleave(2)
+        sk, mk, idx, vk = _penalized_topk(scores, mats, valid, cand_ok,
+                                          tof[None].expand(s_count, -1), lengths,
+                                          tau, k)
+        return sk, mk, tof[idx], vk
 
 
 def _gather(parts, device, dim=1):

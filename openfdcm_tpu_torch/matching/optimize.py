@@ -20,6 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..profiling import count, span
+
 _BIG = 3.0e38
 
 
@@ -159,9 +161,20 @@ def optimize(optimizer, templates, alignments, featuremap):
 
 
 def host_sync(t: torch.Tensor):
-    """``t.item()`` — a device-to-host sync, counted in ``host_sync.count``."""
+    """``t.item()`` — a device-to-host sync, counted in ``host_sync.count``
+    and recorded as span ``walks.sync``."""
     host_sync.count += 1
-    return t.item()
+    with span("walks.sync"):
+        return t.item()
+
+
+def _any_live(state) -> bool:
+    """Whether a lockstep walk has a live candidate (one host sync); a true
+    read is one more window, counted in ``walks.windows``."""
+    live = host_sync((~state[3]).any())
+    if live:
+        count("walks.windows")
+    return live
 
 
 host_sync.count = 0
@@ -232,8 +245,9 @@ def _greedy_walk(eval_window, t_limit, state, sign, window):
     """Lockstep greedy walk (Default/Indulgent semantics) continuing from
     ``state = (prev, best, bmul, done, t_next)``; ``eval_window(t0)`` gives
     ``(C, window)`` scores at steps ``t0 + i``.  One host sync per window."""
-    while host_sync((~state[3]).any()):
-        state = _greedy_chain(eval_window(state[4]), t_limit, state, sign)
+    with span("walks.loop"):
+        while _any_live(state):
+            state = _greedy_chain(eval_window(state[4]), t_limit, state, sign)
     return state
 
 
@@ -271,12 +285,13 @@ def _batch_stats(scores, t_limit, t0, batch):
 def _batch_walk(eval_window, t_limit, state, sign, batch):
     """Lockstep BatchOptimize walk continuing from ``state = (prev, best,
     bmul, done, t_next)``; one host sync per step of ``batch`` steps."""
-    while host_sync((~state[3]).any()):
-        prev, best, bmul, done, t0 = state
-        scores = eval_window(t0)
-        bmin, barg, last, _ = _batch_stats(scores, t_limit, t0, batch)
-        prev, best, bmul, done = _batch_step(
-            (prev, best, bmul, done), (bmin[:, 0], barg[:, 0], last[:, 0], t0),
-            sign=sign, batch=batch, t_limit=t_limit)
-        state = (prev, best, bmul, done, t0 + batch)
+    with span("walks.loop"):
+        while _any_live(state):
+            prev, best, bmul, done, t0 = state
+            scores = eval_window(t0)
+            bmin, barg, last, _ = _batch_stats(scores, t_limit, t0, batch)
+            prev, best, bmul, done = _batch_step(
+                (prev, best, bmul, done), (bmin[:, 0], barg[:, 0], last[:, 0], t0),
+                sign=sign, batch=batch, t_limit=t_limit)
+            state = (prev, best, bmul, done, t0 + batch)
     return state

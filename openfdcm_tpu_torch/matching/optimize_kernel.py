@@ -54,6 +54,7 @@ from ..core import rasterize as ras
 from ..ops import window as wk
 from ..ops import window_v2 as wk2
 from ..ops import window_v3 as wk3
+from ..profiling import count, span
 from . import featuremap as fm
 from . import optimize as opt
 
@@ -142,28 +143,31 @@ def _straggler(state, sign, t_lim, chain_cov, walk, eval_at, ext_eval,
     on the host (the JAX package's ``lax.switch`` ladder becomes a host
     branch): an extension pass on exactly the live candidates, then a
     lockstep ``walk`` on those still live."""
-    live = opt.host_sync((~state[3]).sum())
-    if live == 0:
-        return state
-    sel = _compact_sel(state[3], live)
-    sub = tuple(x[sel] for x in state)
-    scores, cover = ext_eval(sel, ~sub[3], sign, sub[4])
-    # steps t0 .. t0 + cover are covered; a live candidate with cover 0 was
-    # quarantined (generation 3: weight 0 on every line) and has none, not
-    # even t0, whose lane holds 0 (the JAX package takes that lane as step
-    # t0's score: ROADMAP Queue 3)
-    cover = cover.to(torch.float32)
-    tcov = torch.where(cover > 0, sub[4] + cover, sub[4] - 1)
-    sub = chain_cov(scores, t_lim[sel], tcov, sub, sign)
-    state = tuple(x.index_put((sel,), v) for x, v in zip(state, sub))
+    with span("walks.straggler"):
+        live = opt.host_sync((~state[3]).sum())
+        count("walks.ext_candidates", live)
+        if live == 0:
+            return state
+        sel = _compact_sel(state[3], live)
+        sub = tuple(x[sel] for x in state)
+        scores, cover = ext_eval(sel, ~sub[3], sign, sub[4])
+        # steps t0 .. t0 + cover are covered; a live candidate with cover 0
+        # was quarantined (generation 3: weight 0 on every line) and has
+        # none, not even t0, whose lane holds 0 (the JAX package takes that
+        # lane as step t0's score: ROADMAP Queue 3)
+        cover = cover.to(torch.float32)
+        tcov = torch.where(cover > 0, sub[4] + cover, sub[4] - 1)
+        sub = chain_cov(scores, t_lim[sel], tcov, sub, sign)
+        state = tuple(x.index_put((sel,), v) for x, v in zip(state, sub))
 
-    live = opt.host_sync((~state[3]).sum())
-    if live == 0:
-        return state
-    sel = _compact_sel(state[3], live)
-    sub = tuple(x[sel] for x in state)
-    sub = walk(eval_at(sign, window, sel), t_lim[sel], sub, sign, window)
-    return tuple(x.index_put((sel,), v) for x, v in zip(state, sub))
+        live = opt.host_sync((~state[3]).sum())
+        count("walks.lockstep_candidates", live)
+        if live == 0:
+            return state
+        sel = _compact_sel(state[3], live)
+        sub = tuple(x[sel] for x in state)
+        sub = walk(eval_at(sign, window, sel), t_lim[sel], sub, sign, window)
+        return tuple(x.index_put((sel,), v) for x, v in zip(state, sub))
 
 
 def _dense(window, ep, sid, wt, tr, safe_rast, t_pos, t_neg, dense_steps):

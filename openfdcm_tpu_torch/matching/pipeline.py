@@ -30,7 +30,8 @@ from ..core import integral
 from ..core.dt import dt_from_indicator
 from ..core.types import resolve_device
 from ..ops.window import tile_shape
-from ..profiling import maybe_stage
+from .. import profiling
+from ..profiling import maybe_stage, span, to_device, to_host
 from . import featuremap as fm
 from . import optimize as opt
 from .match import (Match, TemplateBank, _bucket, _genpairs_topk_sharded,
@@ -99,31 +100,33 @@ def build_featuremap_batch(scenes, params: fm.Dt3Params = fm.Dt3Params(),
     ``device``, which the mesh decides when it is None.  Every scene's
     stack is the unsharded build's, bit for bit."""
     device = _call_device(mesh, device, "build_featuremap_batch")
-    arrs = [geo.as_lines_np(s) for s in scenes]
-    metas = [fm.scene_centered_translation(a, params.padding) for a in arrs]
-    phys = max(max(w, h) for _, (w, h) in metas)
-    phys = -(-phys // pad_to) * pad_to
-    nb = max(max(a.shape[0] for a in arrs), 1)
+    with span("build.host"):
+        arrs = [geo.as_lines_np(s) for s in scenes]
+        metas = [fm.scene_centered_translation(a, params.padding) for a in arrs]
+        phys = max(max(w, h) for _, (w, h) in metas)
+        phys = -(-phys // pad_to) * pad_to
+        nb = max(max(a.shape[0] for a in arrs), 1)
 
-    s_count = len(arrs)
-    lines = np.zeros((s_count, nb, 4), np.float32)
-    mask = np.zeros((s_count, nb), bool)
-    lhw = np.zeros((s_count, 2), np.int64)
-    trs = np.zeros((s_count, 2), np.float32)
-    span = 0.0
-    for i, (a, (tr, (w, h))) in enumerate(zip(arrs, metas)):
-        lines[i, : a.shape[0]] = a + np.concatenate([tr, tr]).astype(np.float32)
-        mask[i, : a.shape[0]] = True
-        lhw[i] = (h, w)
-        trs[i] = tr
-        if a.shape[0]:
-            d = np.maximum(np.abs(a[:, 2] - a[:, 0]), np.abs(a[:, 3] - a[:, 1]))
-            span = max(span, float(np.max(d)))
-    # rasterized points per line: trunc(span) + 1 bounds every line (clipping
-    # only shrinks spans); bucketed to 64 as in the JAX package
-    max_points = min(phys, -(-(int(span) + 2) // 64) * 64)
-
-    angles = fm.make_angles(params.depth)
+        s_count = len(arrs)
+        lines = np.zeros((s_count, nb, 4), np.float32)
+        mask = np.zeros((s_count, nb), bool)
+        lhw = np.zeros((s_count, 2), np.int64)
+        trs = np.zeros((s_count, 2), np.float32)
+        reach = 0.0
+        for i, (a, (tr, (w, h))) in enumerate(zip(arrs, metas)):
+            lines[i, : a.shape[0]] = a + np.concatenate([tr, tr]).astype(np.float32)
+            mask[i, : a.shape[0]] = True
+            lhw[i] = (h, w)
+            trs[i] = tr
+            if a.shape[0]:
+                d = np.maximum(np.abs(a[:, 2] - a[:, 0]), np.abs(a[:, 3] - a[:, 1]))
+                reach = max(reach, float(np.max(d)))
+        # rasterized points per line: trunc(reach) + 1 bounds every line
+        # (clipping only shrinks them); bucketed to 64 as in the JAX package
+        max_points = min(phys, -(-(int(reach) + 2) // 64) * 64)
+        angles = fm.make_angles(params.depth)
+    with span("build.seed"):
+        angles_dev, trs_dev = to_device(angles, device), to_device(trs, device)
     build = lambda rows, dev: _build_stack(lines[rows], mask[rows], lhw[rows],
                                            params, angles, phys, max_points, dev)
     n_dp = 1 if mesh is None else mesh.axis_size("scene")
@@ -137,26 +140,30 @@ def build_featuremap_batch(scenes, params: fm.Dt3Params = fm.Dt3Params(),
     else:
         dt3 = build(slice(None), device)
     return Dt3FeaturemapBatch(
-        dt3=dt3, angles=torch.as_tensor(angles, device=device),
-        scene_translations=torch.as_tensor(trs, device=device),
+        dt3=dt3, angles=angles_dev, scene_translations=trs_dev,
         feature_sizes=tuple((w, h) for _, (w, h) in metas), params=params)
 
 
 def _build_stack(lines, mask, lhw, params, angles, phys, max_points, device):
     """The ``(S, D, phys, phys)`` DT3 stack of host line tables on
     ``device``: seed scatter, column pass, K2, logical mask, K3, K4."""
-    lhw_dev = torch.as_tensor(lhw, device=device)
-    ind = fm._indicator_batch(
-        torch.as_tensor(lines, device=device), torch.as_tensor(mask, device=device),
-        lhw_dev, depth=params.depth, phys_h=phys, phys_w=phys,
-        max_points=max_points)
-    dt3 = dt_from_indicator(ind, metric=params.distance)
-    del ind
-    dt3 = torch.where(fm._logical_mask(lhw_dev, phys, phys)[:, None], dt3,
-                      torch.zeros((), dtype=dt3.dtype, device=dt3.device))
-    dt3 = fm.propagate_orientation_relax(
-        dt3, fm.propagation_steps(angles, params.dt3_coeff))
-    return integral.line_integral_stack_batch_(dt3, angles, lhw)
+    with span("build.seed"):
+        lhw_dev = to_device(lhw, device)
+        ind = fm._indicator_batch(
+            to_device(lines, device), to_device(mask, device),
+            lhw_dev, depth=params.depth, phys_h=phys, phys_w=phys,
+            max_points=max_points)
+    with span("build.columns"):
+        dt3 = dt_from_indicator(ind, metric=params.distance)
+        del ind
+    with span("build.mask"):
+        dt3 = torch.where(fm._logical_mask(lhw_dev, phys, phys)[:, None], dt3,
+                          torch.zeros((), dtype=dt3.dtype, device=dt3.device))
+    with span("build.relax"):
+        dt3 = fm.propagate_orientation_relax(
+            dt3, fm.propagation_steps(angles, params.dt3_coeff))
+    with span("build.integral"):
+        return integral.line_integral_stack_batch_(dt3, angles, lhw)
 
 
 def _call_device(mesh, device, what: str) -> torch.device:
@@ -238,7 +245,7 @@ def _rows(t, rows):
     any device)."""
     if isinstance(rows, slice) or isinstance(t, np.ndarray):
         return t[rows]
-    return t[torch.as_tensor(rows, device=t.device)]
+    return t[to_device(rows, t.device)]
 
 
 def match_many(scenes, templates, params: fm.Dt3Params, searcher, optimizer,
@@ -280,80 +287,88 @@ def match_many_async(scenes, templates, params: fm.Dt3Params, searcher,
     and search, and returns a zero-argument ``collect()`` that fetches the
     results (on the top-k path one device-to-host copy per dispatch) and
     returns ``list[list[Match]]``."""
-    device = _call_device(mesh, device, "match_many_async")
-    opt.optimizer_mode(optimizer)      # an unknown optimizer raises here
-    kernel_version()                   # a non-integer generation raises here
-    bank = templates if isinstance(templates, TemplateBank) \
-        else prepare_templates(templates, device=device)
-    if bank.device != device:
-        raise ValueError(f"template bank on {bank.device}, search on {device}")
+    with profiling.call() as cid, span("match.call"):
+        with span("match.prepare"):
+            device = _call_device(mesh, device, "match_many_async")
+            opt.optimizer_mode(optimizer)      # an unknown optimizer raises here
+            kernel_version()                   # a non-integer generation raises here
+            bank = templates if isinstance(templates, TemplateBank) \
+                else prepare_templates(templates, device=device)
+            if bank.device != device:
+                raise ValueError(f"template bank on {bank.device}, search on {device}")
 
-    lengths = None
-    if penalty is not None:
-        lengths = np.asarray(template_lengths if template_lengths is not None
-                             else geo.get_template_lengths(bank.host), np.float32)
-        if lengths.shape[0] < len(bank.host):   # a device gather would assert
-            raise IndexError("In penalize, the size of templatelengths is not "
-                             "consistent with match template indices")
-    # the device penalizes and ranks when the penalty has the reference's
-    # power form (or is absent); any other penalty ranks on the host
-    post = None
-    if top_k is not None:
-        if penalty is None:
-            post = (torch.ones(max(len(bank.host), 1), device=device),
-                    float("nan"), top_k)
-        elif type(penalty) in (DefaultPenalty, ExponentialPenalty):
-            tau = 1.0 if type(penalty) is DefaultPenalty else float(penalty.tau)
-            post = (torch.as_tensor(lengths, device=device), tau, top_k)
-    use_devpairs = (post is not None and len(bank.host) > 0
-                    and type(searcher) in (DefaultSearch, ConcentricRangeStrategy)
-                    and (mesh is None or set(mesh.axis_names) <= {"scene"}))
-    n_dp = 1 if mesh is None else mesh.axis_size("scene")
+            lengths = None
+            if penalty is not None:
+                lengths = np.asarray(template_lengths if template_lengths is not None
+                                     else geo.get_template_lengths(bank.host), np.float32)
+                if lengths.shape[0] < len(bank.host):   # a device gather would assert
+                    raise IndexError("In penalize, the size of templatelengths is not "
+                                     "consistent with match template indices")
+            # the device penalizes and ranks when the penalty has the
+            # reference's power form (or is absent); any other penalty ranks
+            # on the host
+            post = None
+            if top_k is not None:
+                if penalty is None:
+                    post = (torch.ones(max(len(bank.host), 1), device=device),
+                            float("nan"), top_k)
+                elif type(penalty) in (DefaultPenalty, ExponentialPenalty):
+                    tau = 1.0 if type(penalty) is DefaultPenalty else float(penalty.tau)
+                    post = (to_device(lengths, device), tau, top_k)
+            use_devpairs = (post is not None and len(bank.host) > 0
+                            and type(searcher) in (DefaultSearch, ConcentricRangeStrategy)
+                            and (mesh is None or set(mesh.axis_names) <= {"scene"}))
+            n_dp = 1 if mesh is None else mesh.axis_size("scene")
 
-    arrs = [geo.as_lines_np(s) for s in scenes]
-    buckets = {}
-    for i, a in enumerate(arrs):
-        if a.shape[0] == 0:
-            continue                       # zero-line scene: no matches
-        _, (w, h) = fm.scene_centered_translation(a, params.padding)
-        buckets.setdefault(-(-max(w, h) // pad_to) * pad_to, []).append(i)
+            arrs = [geo.as_lines_np(s) for s in scenes]
+            buckets = {}
+            for i, a in enumerate(arrs):
+                if a.shape[0] == 0:
+                    continue                       # zero-line scene: no matches
+                _, (w, h) = fm.scene_centered_translation(a, params.padding)
+                buckets.setdefault(-(-max(w, h) // pad_to) * pad_to, []).append(i)
 
-    if scene_chunk is None and buckets:
-        side = max(buckets)
-        scene_chunk = _scene_chunk(_cands_per_scene(searcher, bank), bank.lmax,
-                                   _tile_bytes((params.depth, side, side)),
-                                   device)
-    if scene_chunk is not None:
-        scene_chunk *= n_dp            # scene_chunk scenes per scene block
+            if scene_chunk is None and buckets:
+                side = max(buckets)
+                scene_chunk = _scene_chunk(_cands_per_scene(searcher, bank), bank.lmax,
+                                           _tile_bytes((params.depth, side, side)),
+                                           device)
+            if scene_chunk is not None:
+                scene_chunk *= n_dp            # scene_chunk scenes per scene block
 
-    out = [[] for _ in scenes]
-    deferred, host_results = [], []
-    for key in sorted(buckets):
-        idxs = buckets[key]
-        with maybe_stage(timer, "build_featuremap", device):
-            fms = build_featuremap_batch([scenes[i] for i in idxs], params,
-                                         pad_to=pad_to, device=device,
-                                         mesh=mesh)
-        group = [arrs[i] for i in idxs]
-        if use_devpairs:
-            with maybe_stage(timer, "search_topk_devpairs", device):
-                fin = _genpairs_batch_dispatch(searcher, optimizer, fms, bank,
-                                               group, post, scene_chunk,
-                                               mesh=mesh)
-            deferred.append((idxs, fin))
-        else:
-            with maybe_stage(timer, "search_host_pairs", device):
-                host_results.append((idxs, _search_batch_arrays(
-                    searcher, optimizer, fms, bank, group,
-                    scene_chunk=scene_chunk, post=post, mesh=mesh)))
+        out = [[] for _ in scenes]
+        deferred, host_results = [], []
+        for key in sorted(buckets):
+            idxs = buckets[key]
+            with maybe_stage(timer, "build_featuremap", device):
+                fms = build_featuremap_batch([scenes[i] for i in idxs], params,
+                                             pad_to=pad_to, device=device,
+                                             mesh=mesh)
+            group = [arrs[i] for i in idxs]
+            if use_devpairs:
+                with maybe_stage(timer, "search_topk_devpairs", device):
+                    fin = _genpairs_batch_dispatch(searcher, optimizer, fms, bank,
+                                                   group, post, scene_chunk,
+                                                   mesh=mesh)
+                deferred.append((idxs, fin))
+            else:
+                with maybe_stage(timer, "search_host_pairs", device), \
+                        span("search.host_ranking"):
+                    host_results.append((idxs, _search_batch_arrays(
+                        searcher, optimizer, fms, bank, group,
+                        scene_chunk=scene_chunk, post=post, mesh=mesh)))
 
     def collect() -> list:
-        for idxs, fin in deferred:
-            for i, rows in zip(idxs, fin()):
-                out[i] = [Match(t, s, m.copy()) for (s, t, m) in rows[:top_k]]
-        for idxs, res in host_results:
-            for i, item in zip(idxs, res):
-                out[i] = _host_matches(item, penalty, lengths, top_k)
+        with profiling.call(cid):
+            for idxs, fin in deferred:
+                per_scene = fin()
+                with span("collect.match"):
+                    for i, rows in zip(idxs, per_scene):
+                        out[i] = [Match(t, s, m.copy()) for (s, t, m) in rows[:top_k]]
+            for idxs, res in host_results:
+                with span("collect.match"):
+                    for i, item in zip(idxs, res):
+                        out[i] = _host_matches(item, penalty, lengths, top_k)
         return out
 
     return collect
@@ -416,80 +431,87 @@ def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
     ms = searcher.get_max_scene_lines()
     if mt == 0 or ms == 0 or t_count == 0:
         return lambda: [[] for _ in range(s_total)]
-    ord_t, k_t = bank_line_table(bank.lengths_np, counts, mt)
-    lens_m = np.where(np.arange(lmax)[None, :] < counts[:, None],
-                      bank.lengths_np, -np.inf)
-    top_vals = np.take_along_axis(lens_m, ord_t.astype(np.int64), axis=1) \
-        .astype(np.float32)
-    rank_ok = np.arange(mt)[None, :] < k_t[:, None]
-    annulus = ((*searcher.center_position, searcher.low_boundary,
-                searcher.high_boundary)
-               if isinstance(searcher, ConcentricRangeStrategy) else None)
-    mode, window = opt.optimizer_mode(optimizer)
+    with span("search.host"):
+        ord_t, k_t = bank_line_table(bank.lengths_np, counts, mt)
+        lens_m = np.where(np.arange(lmax)[None, :] < counts[:, None],
+                          bank.lengths_np, -np.inf)
+        top_vals = np.take_along_axis(lens_m, ord_t.astype(np.int64), axis=1) \
+            .astype(np.float32)
+        rank_ok = np.arange(mt)[None, :] < k_t[:, None]
+        annulus = ((*searcher.center_position, searcher.low_boundary,
+                    searcher.high_boundary)
+                   if isinstance(searcher, ConcentricRangeStrategy) else None)
+        mode, window = opt.optimizer_mode(optimizer)
 
-    nb = _bucket(max((a.shape[0] for a in arrs), default=1), 128)
-    scene_arr = np.zeros((s_total, nb, 4), np.float32)
-    slen_arr = np.zeros((s_total, nb), np.float32)
-    svalid_arr = np.zeros((s_total, nb), bool)
-    for i, a in enumerate(arrs):
-        scene_arr[i, : a.shape[0]] = a
-        slen_arr[i], svalid_arr[i] = scene_length_mask(a, nb, annulus)
-    fs = np.asarray([[float(w), float(h)] for (w, h) in featuremaps.feature_sizes],
-                    np.float32)
-    dense_steps = opt.dense_step_count(optimizer, int(fs.max()))
+        nb = _bucket(max((a.shape[0] for a in arrs), default=1), 128)
+        scene_arr = np.zeros((s_total, nb, 4), np.float32)
+        slen_arr = np.zeros((s_total, nb), np.float32)
+        svalid_arr = np.zeros((s_total, nb), bool)
+        for i, a in enumerate(arrs):
+            scene_arr[i, : a.shape[0]] = a
+            slen_arr[i], svalid_arr[i] = scene_length_mask(a, nb, annulus)
+        fs = np.asarray([[float(w), float(h)] for (w, h) in featuremaps.feature_sizes],
+                        np.float32)
+        dense_steps = opt.dense_step_count(optimizer, int(fs.max()))
 
-    as_dev = lambda a: torch.as_tensor(a, device=device)
-    tables = (as_dev(top_vals), as_dev(ord_t), as_dev(rank_ok))
-    n_dp = 1 if mesh is None else mesh.axis_size("scene")
-    chunks = _even_chunks(s_total, scene_chunk, n_dp)
-    tile_bytes = _tile_bytes(featuremaps.dt3.shape[1:])
-    # sized for one scene block: the blocks of a chunk run one after another
-    t_chunk = max(1, _cands_per_dispatch(
-        -(-max(hi - lo for lo, hi in chunks) // n_dp), lmax, tile_bytes,
-        device) // (2 * mt * ms))
-    # each template chunk's tables, sliced once (a mesh copies them once
-    # per distinct device; one chunk keeps the bank's own tensors)
-    t_ranges = _even_chunks(t_count, t_chunk)
-    t_parts = [(t0, t1, [x if len(t_ranges) == 1 else x[t0:t1]
-                         for x in (bank.lines, bank.mask, *tables, lengths_dev)])
-               for t0, t1 in t_ranges]
+        as_dev = lambda a: to_device(a, device)
+        tables = (as_dev(top_vals), as_dev(ord_t), as_dev(rank_ok))
+        n_dp = 1 if mesh is None else mesh.axis_size("scene")
+        chunks = _even_chunks(s_total, scene_chunk, n_dp)
+        tile_bytes = _tile_bytes(featuremaps.dt3.shape[1:])
+        # sized for one scene block: the blocks of a chunk run one after another
+        t_chunk = max(1, _cands_per_dispatch(
+            -(-max(hi - lo for lo, hi in chunks) // n_dp), lmax, tile_bytes,
+            device) // (2 * mt * ms))
+        # each template chunk's tables, sliced once (a mesh copies them once
+        # per distinct device; one chunk keeps the bank's own tensors)
+        t_ranges = _even_chunks(t_count, t_chunk)
+        t_parts = [(t0, t1, [x if len(t_ranges) == 1 else x[t0:t1]
+                             for x in (bank.lines, bank.mask, *tables, lengths_dev)])
+                   for t0, t1 in t_ranges]
     packed = []
     for lo, hi in chunks:
         rows = _chunk_rows(lo, hi, n_dp)
         parts = []
         for t0, t1, (t_lines, t_mask, *t_tables, t_lengths) in t_parts:
-            kk = min(top_k, 2 * (t1 - t0) * mt * ms)
-            args = (t_lines, t_mask, *t_tables,
-                    *(as_dev(_rows(a, rows)) for a in (scene_arr, slen_arr,
-                                                       svalid_arr)),
-                    _rows(featuremaps.dt3, rows), featuremaps.angles,
-                    _rows(featuremaps.scene_translations, rows),
-                    as_dev(_rows(fs, rows)), t_lengths, tau)
-            kw = dict(mode=mode, window=max(window, 1), dense_steps=dense_steps,
-                      k=kk, ms=ms)
-            sk, mk, tk, vk = (_genpairs_topk_sharded(mesh, *args, **kw)
-                              if n_dp > 1 else
-                              _search_device_batch_topk_genpairs(*args, **kw))
-            # one (S, k, 9) tensor [score, tmpl, valid, mat(6)] per part: one copy
-            parts.append((t0, torch.cat(
-                [sk[..., None], tk.to(torch.float32)[..., None],
-                 vk.to(torch.float32)[..., None],
-                 mk.reshape(*mk.shape[:2], 6)], dim=-1)))
+            with span("search.launch"):
+                kk = min(top_k, 2 * (t1 - t0) * mt * ms)
+                args = (t_lines, t_mask, *t_tables,
+                        *(as_dev(_rows(a, rows)) for a in (scene_arr, slen_arr,
+                                                           svalid_arr)),
+                        _rows(featuremaps.dt3, rows), featuremaps.angles,
+                        _rows(featuremaps.scene_translations, rows),
+                        as_dev(_rows(fs, rows)), t_lengths, tau)
+                kw = dict(mode=mode, window=max(window, 1), dense_steps=dense_steps,
+                          k=kk, ms=ms)
+                sk, mk, tk, vk = (_genpairs_topk_sharded(mesh, *args, **kw)
+                                  if n_dp > 1 else
+                                  _search_device_batch_topk_genpairs(*args, **kw))
+                # one (S, k, 9) tensor [score, tmpl, valid, mat(6)] per part:
+                # one copy
+                with span("search.topk"):
+                    parts.append((t0, torch.cat(
+                        [sk[..., None], tk.to(torch.float32)[..., None],
+                         vk.to(torch.float32)[..., None],
+                         mk.reshape(*mk.shape[:2], 6)], dim=-1)))
         packed.append((hi - lo, parts))
 
     def collect() -> list:
         out = []
         for n_scenes, parts in packed:
-            merged = [[] for _ in range(n_scenes)]
-            for ci, (t0, p) in enumerate(parts):
-                for row, rows in zip(p.cpu().numpy(), merged):
-                    rows.extend((float(r[0]), ci, j, int(r[1]) + t0,
-                                 r[3:9].reshape(2, 3))
-                                for j, r in enumerate(row)
-                                if r[2] > 0.5 and np.isfinite(r[0]))
-            for rows in merged:
-                rows.sort(key=lambda r: r[:3])
-                out.append([(sc, t, m) for (sc, _, _, t, m) in rows])
+            with span("collect.copy"):
+                host = [(t0, to_host(p)) for t0, p in parts]
+            with span("collect.rows"):
+                merged = [[] for _ in range(n_scenes)]
+                for ci, (t0, p) in enumerate(host):
+                    for row, rows in zip(p, merged):
+                        rows.extend((float(r[0]), ci, j, int(r[1]) + t0,
+                                     r[3:9].reshape(2, 3))
+                                    for j, r in enumerate(row)
+                                    if r[2] > 0.5 and np.isfinite(r[0]))
+                for rows in merged:
+                    rows.sort(key=lambda r: r[:3])
+                    out.append([(sc, t, m) for (sc, _, _, t, m) in rows])
         return out
     return collect
 
@@ -581,7 +603,7 @@ def _search_chunk_dispatch(searcher, optimizer, featuremaps, bank, arrs,
     fs = np.asarray([[float(w), float(h)] for (w, h) in featuremaps.feature_sizes],
                     np.float32)
     dense_steps = opt.dense_step_count(optimizer, int(fs.max()))
-    as_dev = lambda a: torch.as_tensor(a, device=device)
+    as_dev = lambda a: to_device(a, device)
     common = (as_dev(scene_arr), featuremaps.dt3, featuremaps.angles,
               featuremaps.scene_translations, as_dev(fs))
     kw = dict(mode=mode, window=max(window, 1), dense_steps=dense_steps)
@@ -621,7 +643,7 @@ def _convert_topk(per_scene_pairs, parts):
     """Merge per-part device top-k results into per-scene ranked lists
     ``("topk", [(score, global_cand_idx, tmpl_idx, mat), ...])``, ordered
     by (score, candidate index in emplace order)."""
-    parts = [(sel, tuple(x.cpu().numpy() for x in dev)) for sel, dev in parts]
+    parts = [(sel, tuple(to_host(x) for x in dev)) for sel, dev in parts]
     out = []
     for i, pairs in enumerate(per_scene_pairs):
         rows = []
@@ -648,7 +670,7 @@ def _search_chunk_convert(per_scene_pairs, parts, with_topk):
     device tensor), or :func:`_convert_topk`."""
     if with_topk:
         return _convert_topk(per_scene_pairs, parts)
-    parts = [(sel, *(x.cpu().numpy() for x in dev)) for sel, dev in parts]
+    parts = [(sel, *(to_host(x) for x in dev)) for sel, dev in parts]
     out = []
     for i, pairs in enumerate(per_scene_pairs):
         n = 2 * pairs.shape[0]

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..profiling import to_device
 from . import build
 
 
@@ -83,8 +84,8 @@ def sweep_stack(imgs: torch.Tensor, deltas, table) -> torch.Tensor:
     if not build.use_kernel(imgs):
         return sweep_stack_plain(imgs, deltas, table)
     if imgs.numel():
-        dev_d = torch.as_tensor(deltas, device=imgs.device)
-        dev_t = torch.as_tensor(table, device=imgs.device)
+        dev_d = to_device(deltas, imgs.device)
+        dev_t = to_device(table, imgs.device)
         build.launch("fdcm_sweep_paths", imgs.device, imgs.data_ptr(),
                      dev_d.data_ptr(), dev_t.data_ptr(), s * d, ph, pw,
                      deltas.shape[1])

@@ -25,6 +25,7 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
+from . import profiling
 from .matching import featuremap as fm
 from .matching.match import TemplateBank, prepare_templates
 from .matching.pipeline import _call_device, match_many
@@ -75,7 +76,7 @@ class MatcherService:
         if self._closed.is_set():
             raise RuntimeError("MatcherService is closed")
         fut: Future = Future()
-        self._queue.put((np.asarray(scene, np.float32), fut))
+        self._queue.put((np.asarray(scene, np.float32), fut, profiling.stamp()))
         return fut
 
     def match(self, scene, timeout: float | None = None):
@@ -111,10 +112,12 @@ class MatcherService:
     # ------------------------------------------------------------------
     def _collect(self):
         """Block for one request, then drain more until the batch window
-        closes or ``max_batch`` is reached."""
+        closes or ``max_batch`` is reached.  Returns the batch and the
+        window's start (:func:`~.profiling.stamp`)."""
         first = self._queue.get()
         if first is None:
-            return None
+            return None, None
+        t_window = profiling.stamp()
         batch = [first]
         t_end = time.monotonic() + max(self.max_batch_delay_s, 0.0)
         while len(batch) < self.max_batch:
@@ -130,7 +133,7 @@ class MatcherService:
                 self._queue.put(None)   # re-signal close after this batch
                 break
             batch.append(item)
-        return batch
+        return batch, t_window
 
     def _loop(self):
         # the dispatch thread's CUDA work runs on the service's card
@@ -138,16 +141,32 @@ class MatcherService:
                else contextlib.nullcontext())
         with ctx:
             while not self._closed.is_set():
-                batch = self._collect()
+                batch, t_window = self._collect()
                 if batch is None:
                     return
-                self._dispatch(batch)
+                with profiling.call() as cid:
+                    if cid is not None:
+                        self._record_waits(batch, t_window, cid)
+                    with profiling.span("serve.dispatch"):
+                        self._dispatch(batch)
+
+    @staticmethod
+    def _record_waits(batch, t_window, cid) -> None:
+        """Spans ``serve.window`` (the batch window after the first
+        request) and, per request, ``serve.queue`` (its submit to the start
+        of this dispatch; the span's id is the request's), on call ``cid``."""
+        now = time.perf_counter_ns()
+        if t_window is not None:
+            profiling.record("serve.window", t_window, now, cid)
+        for item in batch:
+            if item[2] is not None:
+                profiling.record("serve.queue", item[2], now, cid)
 
     def _dispatch(self, batch) -> None:
-        futs = [f for _, f in batch]
+        futs = [item[1] for item in batch]
         try:
             results = match_many(
-                [s for s, _ in batch], self.bank, self.params, self.searcher,
+                [item[0] for item in batch], self.bank, self.params, self.searcher,
                 self.optimizer, penalty=self.penalty,
                 template_lengths=self.template_lengths, top_k=self.top_k,
                 device=self.device, mesh=self.mesh)
