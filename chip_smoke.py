@@ -7,8 +7,9 @@ the final ``{"ok": true, ...}`` line, on any failure (including no GPU, or
 a directory without the ``openfdcm_tpu_torch`` package).  Phases:
 
 1. device: the card's name and power limit, torch, CUDA and nvcc versions;
-2. build: compiles the kernels (``openfdcm_tpu_torch/csrc``: K1-K6 and K1's
-   tile copy) for sm_90a, one nvcc per source, all started together;
+2. build: compiles the kernels (``openfdcm_tpu_torch/csrc``: K1-K6, K1's
+   tile copy and the walks' decisions) for sm_90a, one nvcc per source, all
+   started together;
 3. kernel vs plain: each kernel on the inputs it gets from a real build or
    dispatch of the workload below, against its plain PyTorch version on the
    same inputs — bit-equal; the build kernels K2, K3 and K4 on a 10-scene
@@ -18,7 +19,12 @@ a directory without the ``openfdcm_tpu_torch`` package).  Phases:
    pattern on the whole main-pass set from seeded resume steps (K1 from a
    BatchOptimize dispatch, K5 and K6 from DefaultOptimize dispatches under
    window generations 2 and 3, each reading its dispatch's tiled stack
-   copy, whose kernel runs against its plain version on the card); each
+   copy, whose kernel runs against its plain version on the card); the
+   walks' decisions (``decide_window``, no TPU counterpart) on CPU copies
+   of the windows bank 0's main-path dispatch decides (its main pass in
+   each direction and its first extension pass), each greedy and in
+   batches of 10 and 5 with both signs, whole and cut to its first 2,700
+   candidates (a 1080p frame's main pass); each
    kernel's time beside its bound (bytes over 3.35 TB/s or operations over
    67 TFLOP/s, whichever is larger); the main pass of K1, K5 and K6 split
    into its x-major and y-major candidates, each on the tiled copy and on
@@ -200,6 +206,7 @@ from openfdcm_tpu_torch.ops import build  # noqa: E402
 from openfdcm_tpu_torch.ops import integral as ops_integral  # noqa: E402
 from openfdcm_tpu_torch.ops import minplus as ops_minplus  # noqa: E402
 from openfdcm_tpu_torch.ops import prop as ops_prop  # noqa: E402
+from openfdcm_tpu_torch.ops import walk as ops_walk  # noqa: E402
 from openfdcm_tpu_torch.ops import window as ops_window  # noqa: E402
 from openfdcm_tpu_torch.ops import window_v2 as ops_window_v2  # noqa: E402
 from openfdcm_tpu_torch.ops import window_v3 as ops_window_v3  # noqa: E402
@@ -253,6 +260,10 @@ KERNELS = {
                                         ops_prop.propagate_orientation_plain,
                                         "openfdcm_tpu_torch/csrc/prop.cu",
                                         "openfdcm_tpu/ops/prop_kernel.py:47"),
+    # the walks' decisions over a scored window: no TPU kernel (the JAX
+    # package decides inside one XLA program)
+    "decide_window": (ops_walk.decide_window, ops_walk.decide_window_plain,
+                      "openfdcm_tpu_torch/csrc/walk.cu", None),
 }
 # kernels timed in phase 32 (the far pass: on far pixels, which no canvas
 # of the main path has)
@@ -271,6 +282,8 @@ STRAGGLER_COUNTERS = {"ext_pass": "walks.ext_candidates",
 BUILD_KERNELS = ("K2_minplus_rows", "K3_propagate_orientation", "K4_sweep_stack")
 # every K2 call launches the far pass
 BUILD_PATH_KERNELS = BUILD_KERNELS + ("K2_minplus_rows_far",)
+# every walk (all but DenseOptimize) decides its windows in one launch each
+WALK_KERNELS = ("decide_window",)
 # kernels whose plain version is exact and runs on the card
 PLAIN_ON_CARD = BUILD_KERNELS + ("K1_tile_stack",)
 # the card's published peaks (H100 SXM data sheet, 700 W): HBM bytes/s and
@@ -286,7 +299,7 @@ SEARCH_KERNELS = {2: ("K5_window_v2", "K1_tile_stack"),
 # K5's or K6's name)
 PROFILE_NAMES = ("edt_rows_kernel", "edt_far_kernel", "prop_fixed", "prop_any", "prop_shared",
                  "prop_global", "sweep_paths_kernel", "window_kernel", "tile_kernel",
-                 "window_v2_kernel", "window_v3_kernel")
+                 "window_v2_kernel", "window_v3_kernel", "decide_kernel")
 # generation -> (module, main-pass entry, extension-pass entry, kernel wrapper)
 GEN_ENTRIES = {2: (ops_window_v2, "window_scores_v2", "window_scores_v2_ext",
                    "window_v2"),
@@ -664,7 +677,7 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
 
     report = {}
     for name, (kernel, plain, _, _) in KERNELS.items():
-        if name in LIMIT_KERNELS:
+        if name in LIMIT_KERNELS or name in WALK_KERNELS:
             continue
         calls = cases[name]
         check(calls, f"no {name} call was recorded")
@@ -698,7 +711,94 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
                             library_ms=library_ms(name, calls))
     for name in WINDOW_KERNEL.values():
         major_split(name, cases[name][0])
+    report["decide_window"] = hold_decide(bank, scenes, params, searcher,
+                                          optimizer, penalty, lengths, device)
     return report, cases
+
+
+def decide_parts(args, kw):
+    """A recorded ``decide_window`` call as ``(scores, t_limit, tcov, state,
+    sign, batch)``."""
+    scores, t_limit, tcov, state, sign = args[:5]
+    return scores, t_limit, tcov, state, sign, args[5] if len(args) > 5 else kw.get("batch")
+
+
+def decide_bound(m, h):
+    """``decide_window``'s least time, ms: the window's scores, six float
+    and one bool vector read once, four float and one bool vector written
+    once, over the HBM rate (its few operations a step bind nothing)."""
+    return m * (4 * h + 6 * 4 + 1 + 4 * 4 + 1) / HBM_BYTES_PER_S * 1e3
+
+
+def hold_decide(bank, scenes, params, searcher, optimizer, penalty, lengths,
+                device, cut=2700):
+    """The walks' decisions on the windows of bank 0's main-path dispatch
+    (``optimizer``: BatchOptimize(10)): its main pass in each direction and
+    its first extension pass, each greedy and in batches of 10 and 5 with
+    both signs, whole and cut to its first ``cut`` candidates — the kernel
+    bit-equal to the plain version on CPU copies.  Then the recorded calls
+    as they ran, and their ``cut`` cuts in batches of 5, timed on the card
+    (kernel and plain version by CUDA events; each call's host time over
+    20 calls without a sync) beside :func:`decide_bound`."""
+    with Recorder({"decide_window": (ops_walk, "decide_window")}) as rec:
+        of.match_many(scenes, bank, params, searcher, optimizer, penalty=penalty,
+                      template_lengths=lengths, top_k=TOP_K, device=device)
+    torch.cuda.synchronize()
+    calls = [decide_parts(*c) for c in rec.calls["decide_window"]]
+    check(calls, "no decide_window call was recorded")
+    m_main = max(c[0].shape[0] for c in calls)
+    main = [c for c in calls if c[0].shape[0] == m_main][:2]
+    ext = [c for c in calls if c[0].shape[0] < m_main][:1]
+    check(len(main) == 2 and {c[4] for c in main} == {1.0, -1.0},
+          f"decide_window: main passes of {[tuple(c[0].shape) for c in main]}")
+    kernel, plain = ops_walk.decide_window, ops_walk.decide_window_plain
+    n_bad, n_cases, err = 0, 0, 0.0
+    for scores, t_limit, tcov, state, _, _ in main + ext:
+        for rows in (slice(None), slice(0, cut)):
+            sub = (scores[rows], t_limit[rows], tcov[rows],
+                   tuple(x[rows] for x in state))
+            cpu = (sub[0].cpu(), sub[1].cpu(), sub[2].cpu(),
+                   tuple(x.cpu() for x in sub[3]))
+            for batch in (None, 10, 5):
+                for sign in (1.0, -1.0):
+                    got = kernel(*sub, sign, batch)
+                    want = plain(*cpu, sign, batch)
+                    n_bad += sum(mismatches(g, w) for g, w in zip(got, want))
+                    err = max(err, max(max_abs_err(g, w) for g, w in zip(got[:3], want[:3])))
+                    n_cases += 1
+    print(f"[kernel] decide_window: {n_cases} windows (main pass "
+          f"{[tuple(c[0].shape) for c in main]}, extension pass "
+          f"{[tuple(c[0].shape) for c in ext]}, {len(calls)} calls recorded; "
+          f"greedy, batch 10 and 5, both signs, whole and the first {cut} "
+          f"candidates): mismatches {n_bad}, max_abs_err {err}")
+    check(n_bad == 0, f"decide_window: {n_bad} elements differ from the plain version")
+
+    plus, minus = sorted(main, key=lambda c: -c[4])
+    timed = [("main +", plus), ("main -", minus)] + [("ext", c) for c in ext]
+    timed += [(f"{label}, first {cut}, batch 5",
+               (c[0][:cut], c[1][:cut], c[2][:cut], tuple(x[:cut] for x in c[3]),
+                c[4], 5)) for label, c in timed[:2]]
+    k_ms = p_ms = b_ms = 0.0
+    for label, (scores, t_limit, tcov, state, sign, batch) in timed:
+        args = (scores, t_limit, tcov, state, sign, batch)
+        k = cuda_ms(lambda: kernel(*args), 20)
+        p = cuda_ms(lambda: plain(*args), 3)
+        host = []
+        for fn in (kernel, plain):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn(*args)
+            host.append((time.perf_counter() - t0) / 20 * 1e6)
+            torch.cuda.synchronize()
+        b = decide_bound(*scores.shape)
+        k_ms, p_ms, b_ms = k_ms + k, p_ms + p, b_ms + b
+        print(f"[kernel] decide_window {label} {tuple(scores.shape)} batch "
+              f"{batch}: kernel {k * 1e3:.2f} us, bound {b * 1e3:.3f} us "
+              f"(bytes; {100 * b / k:.1f} % of it), plain {p:.4f} ms on the "
+              f"card; host {host[0]:.1f} / {host[1]:.1f} us a call, kernel / plain")
+    return dict(mismatches=n_bad, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by="bytes", library_ms=None)
 
 
 def library_ms(name, calls):
@@ -887,8 +987,9 @@ def timed_run(banks, params, searcher, optimizer, penalty, device,
     return results, launches, syncs, timer.totals, wall, strag
 
 
-def check_path_launches(launches, version, label):
-    for name in SEARCH_KERNELS[version] + BUILD_PATH_KERNELS:
+def check_path_launches(launches, version, label, walks=True):
+    for name in (SEARCH_KERNELS[version] + BUILD_PATH_KERNELS
+                 + (WALK_KERNELS if walks else ())):
         check(launches[name] > 0, f"{label}: kernel {name} was not launched")
 
 
@@ -1036,9 +1137,10 @@ def phase_dense(banks, params, searcher, penalty, device, batch_ref):
             banks, params, searcher, of.DenseOptimize(), penalty, device)
         second, launches2, _, st2, wall2, _ = timed_run(
             banks, params, searcher, of.DenseOptimize(), penalty, device)
-    check_path_launches(launches, 4, "dense")
+    check_path_launches(launches, 4, "dense", walks=False)
     check(launches["K5_window_v2"] == launches["K6_window_v3"] == 0,
           "dense: a generation-2/3 window kernel was launched")
+    check(launches["decide_window"] == 0, "dense: a walk decision was launched")
     hits = check_topk(banks, first, second)
     lower = 0
     for bank_d, bank_b in zip(first, batch_ref):
@@ -1303,6 +1405,13 @@ def phase_profile(banks, params, searcher, optimizer, penalty, device, report,
     print(f"[profile] K3 per 10-scene launch: {ms3 / n3:.4f} ms in the profile "
           f"({n3} launches, {[r[0][:60] for r in k3]}), {ev:.4f} ms by CUDA "
           f"events on the recorded build (phase 3)")
+    dk = [r for r in rows if "decide_kernel" in r[0]]
+    check(dk, "the profile shows no decide_kernel launch")
+    nd, msd = sum(r[1] for r in dk), sum(r[2] for r in dk)
+    print(f"[profile] decide_kernel: {1e3 * msd / nd:.2f} us a launch in the "
+          f"profile ({nd} launches, {msd:.4f} ms over the run); phase 3's "
+          f"recorded calls {1e3 * report['decide_window']['ms']:.2f} us in all "
+          f"by CUDA events")
     for version, kernel in ((2, "window_v2_kernel"), (3, "window_v3_kernel")):
         with generation(version):
             rows, wall = profiled(lambda: run_slice(
@@ -1355,7 +1464,7 @@ KERNEL_SHORT = {"K1_window_scores": "K1", "K1_tile_stack": "copy",
                 "K4_sweep_stack": "K4", "K5_window_v2": "K5", "K6_window_v3": "K6",
                 "K2_minplus_rows_far": "K2f", "K3_propagate_orientation_any": "K3a",
                 "K2_minplus_rows_wide": "K2w", "K3_propagate_orientation_shared": "K3s",
-                "K3_propagate_orientation_global": "K3g"}
+                "K3_propagate_orientation_global": "K3g", "decide_window": "dec"}
 
 
 def short(launches):

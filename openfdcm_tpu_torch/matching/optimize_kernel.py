@@ -3,11 +3,14 @@
 
 A window kernel scores every candidate on a 128-lane window around its
 aligned position (steps ``m = 0..63`` and ``m = -1..-64``); the
-reference's greedy or batch decisions then run as mask algebra on those
-windows, up to each candidate's covered steps ``tc``.  Walks that leave
+reference's greedy or batch decisions then run on those windows, up to
+each candidate's covered steps ``tc``.  Walks that leave
 the covered window finish in :func:`_straggler`: one one-sided extension
 pass of 64 steps from each live candidate's resume step (covering
-``cover`` of them), then a lockstep walk on kernel K1.
+``cover`` of them), then a lockstep walk on kernel K1, at least 64 steps a
+window (:func:`_lockstep_width`).  Every window's decisions are one launch
+of :func:`~openfdcm_tpu_torch.ops.walk.decide_window` on the card, its
+plain version's mask algebra on the CPU.
 
 The window kernel is chosen by ``OPENFDCM_TPU_KERNEL_VERSION``, the JAX
 package's own switch (:func:`kernel_version`):
@@ -51,6 +54,7 @@ import torch
 
 from ..core import geometry as geo
 from ..core import rasterize as ras
+from ..ops import walk as wkw
 from ..ops import window as wk
 from ..ops import window_v2 as wk2
 from ..ops import window_v3 as wk3
@@ -91,45 +95,10 @@ def window_generation(li_shape) -> int:
     return version
 
 
-def _greedy_chain_cov(scores, t_limit, tcov, state, sign):
-    """One greedy-walk pass over window ``scores (M, H)`` (steps
-    ``t0..t0+H-1``) where only steps ``<= tcov`` were evaluated.  A stop
-    caused by coverage alone leaves the candidate live with ``t_next`` at
-    the first unevaluated step (JAX ``optimize_kernel._greedy_chain_cov``)."""
-    done, t0 = state[3], state[4]
-    idx = opt._steps(t0, scores.shape[1])
-    valid = (idx <= tcov[:, None]) & (idx <= t_limit[:, None]) & ~done[:, None]
-    k, stopped, prev, best, bmul = opt._greedy_decide(scores, valid, state, sign)
-    t_next = t0 + k.to(torch.float32)
-    # the walk ends at an ascent (an evaluated step) or past its limit; a
-    # stop at an unevaluated step within the limit leaves it live
-    done = done | (stopped & ((t_next <= tcov) | (t_next > t_limit)))
-    return prev, best, bmul, done, t_next
-
-
-def _batch_chain_cov(scores, t_limit, tcov, state, sign, batch):
-    """BatchOptimize decisions over window ``scores (M, H)`` (steps
-    ``t0..t0+H-1``).  A batch is decidable only when all its legal steps were
-    evaluated (``min(batch_end, t_limit) <= tcov``); the first undecidable
-    batch freezes the candidate, which resumes at that batch."""
-    prev, best, bmul, done, t0 = state
-    h = scores.shape[1]
-    nb = h // batch
-    bmin, barg, last, t0s = opt._batch_stats(scores[:, :nb * batch], t_limit,
-                                             t0, batch)
-    st = (prev, best, bmul, done)
-    frozen = torch.zeros_like(done)
-    for b in range(nb):
-        t0b = t0s[b]
-        legal_end = torch.minimum(t0b + batch - 1, t_limit)
-        decidable = (legal_end <= tcov) & ~frozen
-        nst = opt._batch_step(st, (bmin[:, b], barg[:, b], last[:, b], t0b),
-                              sign=sign, batch=batch, t_limit=t_limit)
-        st = tuple(torch.where(decidable, n, o) for n, o in zip(nst, st))
-        frozen = frozen | ~decidable
-    prev, best, bmul, done = st
-    nb_dec = torch.clamp(torch.floor((tcov - t0 + 1) / batch), 0, nb)
-    return prev, best, bmul, done, t0 + nb_dec * batch
+# the plain decisions over a covered window (JAX ``_greedy_chain_cov`` with
+# ``batch`` None, ``_batch_chain_cov`` with a batch size), which the
+# JAX-parity tests hold; the card runs ``wkw.decide_window``
+_greedy_chain_cov = _batch_chain_cov = wkw.decide_window_plain
 
 
 def _compact_sel(done, b):
@@ -137,12 +106,21 @@ def _compact_sel(done, b):
     return torch.argsort(done.to(torch.int32), stable=True)[:b]
 
 
-def _straggler(state, sign, t_lim, chain_cov, walk, eval_at, ext_eval,
-               window):
+def _lockstep_width(batch: bool, window: int) -> int:
+    """Steps a lockstep window of :func:`_straggler` scores: ``max(window,
+    K_POS)``, in batch mode rounded down to whole batches of ``window``
+    (at least one)."""
+    width = max(window, wk.K_POS)
+    return width // window * window if batch else width
+
+
+def _straggler(state, sign, t_lim, batch, eval_at, ext_eval, width):
     """Finish walks that left the covered window.  The live count is read
     on the host (the JAX package's ``lax.switch`` ladder becomes a host
     branch): an extension pass on exactly the live candidates, then a
-    lockstep ``walk`` on those still live."""
+    lockstep walk (:func:`~.optimize._lockstep_walk`) on those still live,
+    ``width`` steps a window.  ``batch``: BatchOptimize's batch size, or
+    None for the greedy walk."""
     with span("walks.straggler"):
         live = opt.host_sync((~state[3]).sum())
         count("walks.ext_candidates", live)
@@ -157,7 +135,7 @@ def _straggler(state, sign, t_lim, chain_cov, walk, eval_at, ext_eval,
         # lane as step t0's score: ROADMAP Queue 3)
         cover = cover.to(torch.float32)
         tcov = torch.where(cover > 0, sub[4] + cover, sub[4] - 1)
-        sub = chain_cov(scores, t_lim[sel], tcov, sub, sign)
+        sub = wkw.decide_window(scores, t_lim[sel], tcov, sub, sign, batch)
         state = tuple(x.index_put((sel,), v) for x, v in zip(state, sub))
 
         live = opt.host_sync((~state[3]).sum())
@@ -166,7 +144,8 @@ def _straggler(state, sign, t_lim, chain_cov, walk, eval_at, ext_eval,
             return state
         sel = _compact_sel(state[3], live)
         sub = tuple(x[sel] for x in state)
-        sub = walk(eval_at(sign, window, sel), t_lim[sel], sub, sign, window)
+        sub = opt._lockstep_walk(eval_at(sign, width, sel), t_lim[sel], sub,
+                                 sign, batch)
         return tuple(x.index_put((sel,), v) for x, v in zip(state, sub))
 
 
@@ -194,9 +173,9 @@ def _dense(window, ep, sid, wt, tr, safe_rast, t_pos, t_neg, dense_steps):
                             count=wk.K_POS, two_sided=False)
             steps = t0 + lanes
             scores = torch.where(steps[None, :] <= t_lim[:, None], scores,
-                                 opt._BIG)
+                                 wkw.BIG)
             wmin = scores.amin(dim=1)
-            warg = opt._first_true(scores == wmin[:, None]).to(torch.float32)
+            warg = wkw.first_true(scores == wmin[:, None]).to(torch.float32)
             better = wmin < best
             best = torch.where(better, wmin, best)
             mul = torch.where(better, sign * (t0 + warg), mul)
@@ -216,8 +195,8 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
     ``cand_lines``: ``(S, C, L, 4)``; ``cand_mask``: ``(S, C, L)``;
     ``cand_align``: ``(S, C, 2)``; ``scene_tr`` / ``feature_size``:
     ``(S, 2)``.  ``mode``: ``"default"``, ``"indulgent"``, ``"batch"`` or
-    ``"dense"``; ``window``: the greedy walks' steps per lockstep window,
-    or the batch size; ``dense_steps``: the dense sweep's steps per
+    ``"dense"``; ``window``: the greedy walks' window (a lockstep window
+    scores :func:`_lockstep_width` steps), or the batch size; ``dense_steps``: the dense sweep's steps per
     direction (:func:`~.optimize.dense_step_count`).  ``cand_ok``: optional
     ``(S, C)`` candidates the caller masks anyway (kept out of the windows
     and walks).  ``take``: a reader of the stack's probe values (JAX
@@ -311,25 +290,20 @@ def optimize_candidates_batch_kernel(li, angles, scene_tr, feature_size,
         return entry(li, ep[sel], cm_flat[sel], vdir, active, si_raw[sel],
                      scene_of[sel], scene_tr, t0, tiles=tiles)
 
-    if mode == "batch":
-        chain_cov = partial(_batch_chain_cov, batch=window)
-        walk = opt._batch_walk
-    else:
-        chain_cov, walk = _greedy_chain_cov, opt._greedy_walk
+    batch = window if mode == "batch" else None
+    width = _lockstep_width(batch is not None, window)
     ones = torch.ones(m, dtype=torch.float32, device=dev)
 
     state = (s0, s0, zero, t_pos < 1, ones)
-    state = chain_cov(pos_scores, t_pos, tc, state, 1.0)
-    state = _straggler(state, 1.0, t_pos, chain_cov, walk, eval_at, ext_eval,
-                       window)
+    state = wkw.decide_window(pos_scores, t_pos, tc, state, 1.0, batch)
+    state = _straggler(state, 1.0, t_pos, batch, eval_at, ext_eval, width)
     prev, best, mul, _, _ = state
 
     # indulgent: the negative walk's chain restarts from the aligned score
     # (indulgentoptimize.cpp:56-58)
     nstate = (s0 if mode == "indulgent" else prev, best, mul, t_neg < 1, ones)
-    nstate = chain_cov(neg_scores, t_neg, tc, nstate, -1.0)
-    nstate = _straggler(nstate, -1.0, t_neg, chain_cov, walk, eval_at,
-                        ext_eval, window)
+    nstate = wkw.decide_window(neg_scores, t_neg, tc, nstate, -1.0, batch)
+    nstate = _straggler(nstate, -1.0, t_neg, batch, eval_at, ext_eval, width)
     _, best, mul, _, _ = nstate
 
     translation = (mul[:, None] * safe_rast).reshape(s, c, 2)

@@ -45,6 +45,8 @@ SIGNATURES = {
     "fdcm_window_tiles": [_P, _P, _L, _I, _I, _P],
     "fdcm_window_v2": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                        _I, _I, _I, _P],
+    "fdcm_decide_window": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
+                           _I, _I, _P],
     "fdcm_window_v3": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                        _I, _I, _I, _P],
 }

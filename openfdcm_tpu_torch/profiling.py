@@ -55,6 +55,7 @@ _ATTRIBUTE_COUNTERS = (
     ("ops.window", "window_scores", "launches"),
     ("ops.window_v2", "window_v2", "launches"),
     ("ops.window_v3", "window_v3", "launches"),
+    ("ops.walk", "decide_window", "launches"),
 )
 _counters: dict = dict.fromkeys(
     ("walks.windows", "walks.ext_candidates", "walks.lockstep_candidates",

@@ -207,10 +207,11 @@ def test_walk_counters_follow_the_sync_values(monkeypatch, mode):
 
 
 def test_counts_mirror_the_attribute_counters():
-    from openfdcm_tpu_torch.ops import minplus, prop
+    from openfdcm_tpu_torch.ops import minplus, prop, walk
     c = profiling.counts()
     assert c["host_sync.count"] == topt.host_sync.count
     assert c["minplus_rows.launches"] == minplus.minplus_rows.launches
+    assert c["decide_window.launches"] == walk.decide_window.launches
     assert c["propagate_orientation.any_launches"] == prop.propagate_orientation.any_launches
     assert {"walks.windows", "walks.ext_candidates", "walks.lockstep_candidates",
             "copies.h2d", "copies.d2h"} <= set(c)
