@@ -55,12 +55,25 @@ def _bucket(n: int, quantum: int = 64) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TemplateBank:
-    """Padded template bank on a device (upload once, search many)."""
+    """Padded template bank on a device (upload once, search many).  Tables
+    that depend on the bank alone are made by the first search that needs
+    them and kept with it (:meth:`derived`)."""
     lines: torch.Tensor    # (T, lmax, 4)
     mask: torch.Tensor     # (T, lmax)
     host: tuple            # per-template host (N_i, 4) arrays
     lengths_np: np.ndarray = None   # (T, lmax) f32 per-line lengths (padded 0)
     counts_np: np.ndarray = None    # (T,) int64 real line counts
+    _derived: dict = dataclasses.field(default_factory=dict, init=False,
+                                       repr=False, compare=False)
+
+    def derived(self, key, make):
+        """``make()``, called on the first request for ``key`` and kept for
+        the bank's life: a table computed from the bank alone (the search's
+        line tables for a ``max_tmpl_lines``, the penalty's template
+        lengths), so a search does not rebuild and copy it."""
+        if key not in self._derived:
+            self._derived.setdefault(key, make())
+        return self._derived[key]
 
     @property
     def lmax(self) -> int:

@@ -31,7 +31,7 @@ from ..core.dt import dt_from_indicator
 from ..core.types import resolve_device
 from ..ops.window import tile_shape
 from .. import profiling
-from ..profiling import maybe_stage, span, to_device, to_host
+from ..profiling import count, maybe_stage, span, to_device, to_host
 from . import featuremap as fm
 from . import optimize as opt
 from .match import (Match, TemplateBank, _bucket, _genpairs_topk_sharded,
@@ -193,7 +193,9 @@ def _budget(device: torch.device) -> int:
 def _cand_bytes(lmax: int) -> int:
     """Device bytes one candidate takes in a dispatch: about 16 bytes per
     candidate line for each of ~8 live candidate tensors plus the 128-lane
-    window."""
+    window.  Measured on an H100 (PyTorch's allocator peak over one
+    template part of 1,555,200 candidates at ``lmax`` 33, beside its tiled
+    stack): 5,899 bytes a candidate against the 8,320 planned."""
     return 8 * 16 * lmax + 4 * 1024
 
 
@@ -299,8 +301,8 @@ def match_many_async(scenes, templates, params: fm.Dt3Params, searcher,
 
             lengths = None
             if penalty is not None:
-                lengths = np.asarray(template_lengths if template_lengths is not None
-                                     else geo.get_template_lengths(bank.host), np.float32)
+                lengths = (_template_lengths(bank) if template_lengths is None
+                           else np.asarray(template_lengths, np.float32))
                 if lengths.shape[0] < len(bank.host):   # a device gather would assert
                     raise IndexError("In penalize, the size of templatelengths is not "
                                      "consistent with match template indices")
@@ -314,7 +316,10 @@ def match_many_async(scenes, templates, params: fm.Dt3Params, searcher,
                             float("nan"), top_k)
                 elif type(penalty) in (DefaultPenalty, ExponentialPenalty):
                     tau = 1.0 if type(penalty) is DefaultPenalty else float(penalty.tau)
-                    post = (to_device(lengths, device), tau, top_k)
+                    post = (bank.derived("template_lengths.device",
+                                         lambda: to_device(lengths, device))
+                            if template_lengths is None else to_device(lengths, device),
+                            tau, top_k)
             use_devpairs = (post is not None and len(bank.host) > 0
                             and type(searcher) in (DefaultSearch, ConcentricRangeStrategy)
                             and (mesh is None or set(mesh.axis_names) <= {"scene"}))
@@ -384,6 +389,48 @@ def _cands_per_scene(searcher, bank) -> int:
     return 2 * int(np.minimum(bank.counts_np, mt).sum()) * ms
 
 
+def _template_lengths(bank) -> np.ndarray:
+    """The penalty's length of each template of ``bank`` (host f32), made
+    once per bank."""
+    def make():
+        with span("bank.tables"):
+            return np.asarray(geo.get_template_lengths(bank.host), np.float32)
+    return bank.derived("template_lengths", make)
+
+
+def _search_tables(bank, mt: int) -> tuple:
+    """The bank's line tables for device pairs with ``mt`` template lines,
+    on its device, made once per bank and ``mt``: ``top_vals (T, mt)`` f32
+    lengths of each template's ``mt`` longest lines (stable, ``-inf``
+    beyond its line count), their indices ``ord_t (T, mt)`` int32 and
+    ``rank_ok (T, mt)``."""
+    def make():
+        with span("bank.tables"):
+            counts = bank.counts_np.astype(np.int64)
+            ord_t, k_t = bank_line_table(bank.lengths_np, counts, mt)
+            lens_m = np.where(np.arange(bank.lmax)[None, :] < counts[:, None],
+                              bank.lengths_np, -np.inf)
+            top_vals = np.take_along_axis(lens_m, ord_t.astype(np.int64), axis=1) \
+                .astype(np.float32)
+            rank_ok = np.arange(mt)[None, :] < k_t[:, None]
+            return tuple(to_device(x, bank.device) for x in (top_vals, ord_t, rank_ok))
+    return bank.derived(("search_tables", mt), make)
+
+
+def _template_parts(bank, mt: int, t_ranges) -> list:
+    """``(t0, t1, [lines, mask, top_vals, ord_t, rank_ok])`` of each template
+    part ``[t0, t1)`` of ``t_ranges``: views of the bank's tensors and
+    :func:`_search_tables` (one part keeps the tensors themselves), kept
+    with the bank per ``mt`` and split, so a mesh replicates a part's
+    tables once."""
+    def make():
+        tables = (bank.lines, bank.mask, *_search_tables(bank, mt))
+        if len(t_ranges) == 1:
+            return [(*t_ranges[0], list(tables))]
+        return [(t0, t1, [x[t0:t1] for x in tables]) for t0, t1 in t_ranges]
+    return bank.derived(("template_parts", mt, tuple(t_ranges)), make)
+
+
 def _host_matches(item, penalty, lengths, top_k) -> list:
     """One scene's matches from the host ranking path: its ``("topk",
     rows)`` from the device top-k, or its full ``(pairs, scores, mats,
@@ -425,19 +472,12 @@ def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
     s_total = len(featuremaps)
     device = featuremaps.dt3.device
     lmax = bank.lmax
-    counts = bank.counts_np.astype(np.int64)
     t_count = len(bank.host)
     mt = min(searcher.get_max_tmpl_lines(), lmax)
     ms = searcher.get_max_scene_lines()
     if mt == 0 or ms == 0 or t_count == 0:
         return lambda: [[] for _ in range(s_total)]
     with span("search.host"):
-        ord_t, k_t = bank_line_table(bank.lengths_np, counts, mt)
-        lens_m = np.where(np.arange(lmax)[None, :] < counts[:, None],
-                          bank.lengths_np, -np.inf)
-        top_vals = np.take_along_axis(lens_m, ord_t.astype(np.int64), axis=1) \
-            .astype(np.float32)
-        rank_ok = np.arange(mt)[None, :] < k_t[:, None]
         annulus = ((*searcher.center_position, searcher.low_boundary,
                     searcher.high_boundary)
                    if isinstance(searcher, ConcentricRangeStrategy) else None)
@@ -453,9 +493,10 @@ def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
         fs = np.asarray([[float(w), float(h)] for (w, h) in featuremaps.feature_sizes],
                         np.float32)
         dense_steps = opt.dense_step_count(optimizer, int(fs.max()))
+        # the scenes' tables go to the card once a dispatch, whatever its
+        # scene chunks and template parts
+        scene_tables = [to_device(a, device) for a in (scene_arr, slen_arr, svalid_arr, fs)]
 
-        as_dev = lambda a: to_device(a, device)
-        tables = (as_dev(top_vals), as_dev(ord_t), as_dev(rank_ok))
         n_dp = 1 if mesh is None else mesh.axis_size("scene")
         chunks = _even_chunks(s_total, scene_chunk, n_dp)
         tile_bytes = _tile_bytes(featuremaps.dt3.shape[1:])
@@ -463,27 +504,26 @@ def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
         t_chunk = max(1, _cands_per_dispatch(
             -(-max(hi - lo for lo, hi in chunks) // n_dp), lmax, tile_bytes,
             device) // (2 * mt * ms))
-        # each template chunk's tables, sliced once (a mesh copies them once
-        # per distinct device; one chunk keeps the bank's own tensors)
         t_ranges = _even_chunks(t_count, t_chunk)
-        t_parts = [(t0, t1, [x if len(t_ranges) == 1 else x[t0:t1]
-                             for x in (bank.lines, bank.mask, *tables, lengths_dev)])
-                   for t0, t1 in t_ranges]
+        t_parts = _template_parts(bank, mt, t_ranges)
+        t_lengths = [lengths_dev if len(t_parts) == 1 else lengths_dev[t0:t1]
+                     for t0, t1, _ in t_parts]
     packed = []
     for lo, hi in chunks:
         rows = _chunk_rows(lo, hi, n_dp)
+        scenes, slen, svalid, fs_rows = (_rows(a, rows) for a in scene_tables)
         parts = []
-        for t0, t1, (t_lines, t_mask, *t_tables, t_lengths) in t_parts:
+        for (t0, t1, (t_lines, t_mask, *t_tables)), lengths_part in zip(t_parts, t_lengths):
             with span("search.launch"):
                 kk = min(top_k, 2 * (t1 - t0) * mt * ms)
-                args = (t_lines, t_mask, *t_tables,
-                        *(as_dev(_rows(a, rows)) for a in (scene_arr, slen_arr,
-                                                           svalid_arr)),
+                args = (t_lines, t_mask, *t_tables, scenes, slen, svalid,
                         _rows(featuremaps.dt3, rows), featuremaps.angles,
-                        _rows(featuremaps.scene_translations, rows),
-                        as_dev(_rows(fs, rows)), t_lengths, tau)
+                        _rows(featuremaps.scene_translations, rows), fs_rows,
+                        lengths_part, tau)
                 kw = dict(mode=mode, window=max(window, 1), dense_steps=dense_steps,
                           k=kk, ms=ms)
+                count("search.template_parts")
+                count("search.candidates", scenes.shape[0] * 2 * (t1 - t0) * mt * ms)
                 sk, mk, tk, vk = (_genpairs_topk_sharded(mesh, *args, **kw)
                                   if n_dp > 1 else
                                   _search_device_batch_topk_genpairs(*args, **kw))

@@ -18,8 +18,9 @@ Four forms:
   span on that thread and the call id of the ``match_many_async`` dispatch
   it belongs to, on any thread.  Times are ``time.perf_counter_ns()``;
 * counters (:func:`count`, read with :func:`counts`), always on: the walks'
-  work, blocking copies between host and card (:func:`to_device`,
-  :func:`to_host`), and a mirror of the attribute counters
+  work, the device-pairs search's template parts and candidates, blocking
+  copies between host and card (:func:`to_device`, :func:`to_host`), and
+  a mirror of the attribute counters
   (``host_sync.count``, each kernel wrapper's ``launches``).
 """
 from __future__ import annotations
@@ -59,7 +60,7 @@ _ATTRIBUTE_COUNTERS = (
 )
 _counters: dict = dict.fromkeys(
     ("walks.windows", "walks.ext_candidates", "walks.lockstep_candidates",
-     "copies.h2d", "copies.d2h"), 0)
+     "copies.h2d", "copies.d2h", "search.template_parts", "search.candidates"), 0)
 
 _recording = False
 _spans: list = []

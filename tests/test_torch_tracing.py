@@ -3,8 +3,9 @@ CPU: the span names of one ``match_many`` and of a ``MatcherService``
 dispatch, each with its parent and call id; nothing recorded while
 recording is off, and the same results either way; the walks' counters
 against the rule that rebuilds them from the values of the walks' host
-syncs; the copy counters.  One ``gpu`` test charges the DT3 build's kernels
-to their spans in a device trace.  Imports no JAX, so it also runs on a
+syncs; the copy counters, and the counters of a dispatch's template
+parts.  One ``gpu`` test charges the DT3 build's kernels to their spans in
+a device trace.  Imports no JAX, so it also runs on a
 card's host (``--noconftest``)."""
 import os
 import sys
@@ -19,6 +20,7 @@ import openfdcm_tpu_torch as ot
 from openfdcm_tpu_torch import profiling
 from openfdcm_tpu_torch.matching import optimize as topt
 from openfdcm_tpu_torch.matching import optimize_kernel as tok
+from openfdcm_tpu_torch.matching import pipeline as tpipe
 from openfdcm_tpu_torch.serving import MatcherService
 
 torch.set_num_threads(1)
@@ -32,6 +34,7 @@ PARENTS = {
     "build.host": "match.call", "build.seed": "match.call",
     "build.columns": "match.call", "build.mask": "match.call",
     "build.relax": "match.call", "build.integral": "match.call",
+    "bank.tables": ("match.prepare", "search.host"),
     "search.host": "match.call", "search.launch": "match.call",
     "search.topk": "search.launch", "walks.straggler": "search.launch",
     "walks.loop": "walks.straggler", "walks.sync": ("walks.straggler", "walks.loop"),
@@ -247,6 +250,45 @@ def test_copy_helper_counts_host_card_copies_only():
     assert moved() == (2, 0)
     np.testing.assert_array_equal(profiling.to_host(_CardTensor()), np.zeros(3))
     assert moved() == (2, 1)
+
+
+def test_template_part_counters_and_dispatch_copies(monkeypatch):
+    """``search.template_parts`` and ``search.candidates`` count the template
+    parts and candidates a dispatch searched.  Its host-to-card copies grow
+    by one a part (the scenes' tables go once a dispatch), and the bank's second dispatch copies 4 fewer: the 3 search tables and the
+    penalty's template lengths stay with the bank.  The host counts as a
+    card here, so each copy of host data is counted."""
+    monkeypatch.setattr(profiling, "_on_card", lambda device: device is not None)
+    templates, scenes = _problem()
+    parts = []
+    real = tpipe._search_device_batch_topk_genpairs
+
+    def spy(*a, **k):
+        parts.append(a[5].shape[0] * 2 * a[3].shape[0] * a[3].shape[1] * k["ms"])
+        return real(*a, **k)
+    monkeypatch.setattr(tpipe, "_search_device_batch_topk_genpairs", spy)
+
+    def dispatch(bank):
+        parts.clear()
+        c0 = profiling.counts()
+        out = _match(bank, scenes)
+        c1 = profiling.counts()
+        return out, {k: c1[k] - c0[k]
+                     for k in ("search.template_parts", "search.candidates", "copies.h2d")}
+    bank = ot.prepare_templates(templates, device="cpu")
+    _, first = dispatch(bank)
+    whole, one = dispatch(bank)
+    assert first["copies.h2d"] - one["copies.h2d"] == 4
+    assert one["search.template_parts"] == len(parts) == 2     # the scenes' 2 canvas buckets
+    assert one["search.candidates"] == sum(parts) == len(scenes) * 2 * len(templates) * 4 * 10
+    monkeypatch.setattr(tpipe, "CPU_BUDGET", 1)       # a scene a chunk, a template a part
+    split, many = dispatch(bank)
+    assert many["search.template_parts"] == len(parts) == len(scenes) * len(templates)
+    assert many["search.candidates"] == sum(parts) == one["search.candidates"]
+    # one copy a part is left: the orientation splits of ``classify_lines``
+    assert (many["copies.h2d"] - one["copies.h2d"]
+            == many["search.template_parts"] - one["search.template_parts"])
+    _same(split, whole)
 
 
 @pytest.mark.gpu
