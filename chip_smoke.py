@@ -203,6 +203,7 @@ from openfdcm_tpu_torch.matching import optimize as opt_mod  # noqa: E402
 from openfdcm_tpu_torch.matching import pipeline as pipeline_mod  # noqa: E402
 from openfdcm_tpu_torch.matching.optimize_kernel import window_generation  # noqa: E402
 from openfdcm_tpu_torch.ops import build  # noqa: E402
+from openfdcm_tpu_torch.ops import columns as ops_columns  # noqa: E402
 from openfdcm_tpu_torch.ops import integral as ops_integral  # noqa: E402
 from openfdcm_tpu_torch.ops import minplus as ops_minplus  # noqa: E402
 from openfdcm_tpu_torch.ops import prop as ops_prop  # noqa: E402
@@ -264,6 +265,10 @@ KERNELS = {
     # package decides inside one XLA program)
     "decide_window": (ops_walk.decide_window, ops_walk.decide_window_plain,
                       "openfdcm_tpu_torch/csrc/walk.cu", None),
+    # the column pass before K2: no TPU kernel (the JAX package runs
+    # lax.cummin)
+    "column_pass": (ops_columns.column_pass, ops_columns.column_pass_plain,
+                    "openfdcm_tpu_torch/csrc/columns.cu", None),
 }
 # kernels timed in phase 32 (the far pass: on far pixels, which no canvas
 # of the main path has)
@@ -280,12 +285,12 @@ STRAGGLER_COUNTERS = {"ext_pass": "walks.ext_candidates",
                       "walk": "walks.lockstep_candidates",
                       "walk_windows": "walks.windows"}
 BUILD_KERNELS = ("K2_minplus_rows", "K3_propagate_orientation", "K4_sweep_stack")
-# every K2 call launches the far pass
-BUILD_PATH_KERNELS = BUILD_KERNELS + ("K2_minplus_rows_far",)
+# every K2 call launches the far pass; every build runs the column pass
+BUILD_PATH_KERNELS = BUILD_KERNELS + ("K2_minplus_rows_far", "column_pass")
 # every walk (all but DenseOptimize) decides its windows in one launch each
 WALK_KERNELS = ("decide_window",)
 # kernels whose plain version is exact and runs on the card
-PLAIN_ON_CARD = BUILD_KERNELS + ("K1_tile_stack",)
+PLAIN_ON_CARD = BUILD_KERNELS + ("K1_tile_stack", "column_pass")
 # the card's published peaks (H100 SXM data sheet, 700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
@@ -299,7 +304,8 @@ SEARCH_KERNELS = {2: ("K5_window_v2", "K1_tile_stack"),
 # K5's or K6's name)
 PROFILE_NAMES = ("edt_rows_kernel", "edt_far_kernel", "prop_fixed", "prop_any", "prop_shared",
                  "prop_global", "sweep_paths_kernel", "window_kernel", "tile_kernel",
-                 "window_v2_kernel", "window_v3_kernel", "decide_kernel")
+                 "window_v2_kernel", "window_v3_kernel", "decide_kernel",
+                 "column_pass_kernel")
 # generation -> (module, main-pass entry, extension-pass entry, kernel wrapper)
 GEN_ENTRIES = {2: (ops_window_v2, "window_scores_v2", "window_scores_v2_ext",
                    "window_v2"),
@@ -475,6 +481,10 @@ def work(name, args, kw):
         return 4 * (2 * rows * x.shape[-1] + pixels), 5 * candidates
     if name.startswith("K2_"):
         return 2 * nbytes(x), 24 * x.numel()
+    if name == "column_pass":
+        # one read and one write; two sums, two running minima and the min
+        # of the two directions a pixel
+        return 2 * nbytes(x), 5 * x.numel()
     if name.startswith("K3_"):
         return 2 * nbytes(x), 2 * len(args[1]) * x.numel() // x.shape[-3]
     return 2 * nbytes(x) + nbytes(*args[1:]), x.numel()
@@ -634,7 +644,8 @@ def phase_kernels(banks, params, searcher, optimizer, penalty, device):
     templates, scenes, _ = banks[0]
     with Recorder({"K2_minplus_rows": (dt_mod, "minplus_rows"),
                    "K3_propagate_orientation": (fm_mod, "k3_relax"),
-                   "K4_sweep_stack": (integral_mod, "sweep_stack")}) as build_rec:
+                   "K4_sweep_stack": (integral_mod, "sweep_stack"),
+                   "column_pass": (pipeline_mod, "column_pass_")}) as build_rec:
         of.build_featuremap_batch(scenes, params, device=device)
     build_memory(scenes, params, device)
     with generation(4), Recorder({
@@ -802,9 +813,13 @@ def hold_decide(bank, scenes, params, searcher, optimizer, penalty, lengths,
 
 
 def library_ms(name, calls):
-    """The time of one PyTorch call computing the kernel's function on the
-    same inputs, summed over the calls, where there is one: for K1's tile
-    copy on a canvas of whole tiles, one permuting copy; else None."""
+    """The time of PyTorch computing the kernel's function on the same
+    inputs, summed over the calls, where there is a yardstick: for K1's tile
+    copy on a canvas of whole tiles, one permuting copy; for the column pass
+    the cummin chain it replaces (its plain version); else None."""
+    if name == "column_pass":
+        return sum(cuda_ms(lambda a=a: ops_columns.column_pass_plain(*a), 3)
+                   for a, _ in calls)
     if name != "K1_tile_stack":
         return None
     total = 0.0
@@ -1464,7 +1479,8 @@ KERNEL_SHORT = {"K1_window_scores": "K1", "K1_tile_stack": "copy",
                 "K4_sweep_stack": "K4", "K5_window_v2": "K5", "K6_window_v3": "K6",
                 "K2_minplus_rows_far": "K2f", "K3_propagate_orientation_any": "K3a",
                 "K2_minplus_rows_wide": "K2w", "K3_propagate_orientation_shared": "K3s",
-                "K3_propagate_orientation_global": "K3g", "decide_window": "dec"}
+                "K3_propagate_orientation_global": "K3g", "decide_window": "dec",
+                "column_pass": "cols"}
 
 
 def short(launches):
@@ -3098,8 +3114,11 @@ def main(argv=None) -> int:
                     launches=launches[name], **report[name])
                for name, (_, _, src, rep) in KERNELS.items()]
     for k in kernels:
-        lib = (f"one PyTorch call {k['library_ms']:.4f} ms" if k["library_ms"]
-               else "no single PyTorch call computes its function")
+        lib = ("no single PyTorch call computes its function"
+               if not k["library_ms"] else
+               f"the cummin chain it replaces {k['library_ms']:.4f} ms"
+               if k["name"] == "column_pass" else
+               f"one PyTorch call {k['library_ms']:.4f} ms")
         print(f"[kernels] {k['name']}: {k['ms']:.4f} ms over its recorded "
               f"calls, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
               f"{100 * k['bound_ms'] / k['ms']:.1f} % of bound, "

@@ -3,7 +3,9 @@
 Separable and exact, as in the JAX package:
 
 1. column pass — ``g[y, x] = min_y' |y - y'|`` over seed rows of column x,
-   with the cumulative-min identity (``torch.cummin``);
+   with the cumulative-min identity (``torch.cummin``): :func:`_nearest_1d_l1`
+   on the CPU, in one CUDA launch on the card
+   (:mod:`openfdcm_tpu_torch.ops.columns`, bit-equal to it);
 2. row pass — L1 by the same identity; L2² as the min-plus convolution
    ``min_s (g[r, s]² + (x - s)²)`` and L2 as its square root, both on
    kernel K2 (:mod:`openfdcm_tpu_torch.ops.minplus`), which takes ``g``
@@ -22,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.columns import column_pass
 from ..ops.minplus import minplus_rows
 from . import draw
 from . import geometry as geo
@@ -81,8 +84,8 @@ def row_pass(g: torch.Tensor, *, metric: Distance) -> torch.Tensor:
 
 def dt_from_indicator(ind: torch.Tensor, *, metric: Distance) -> torch.Tensor:
     """Exact DT of a seed-indicator image ``(..., H, W)``: 0 at seed pixels,
-    ``F32_MAX`` elsewhere."""
-    return row_pass(_nearest_1d_l1(ind, dim=-2), metric=metric)
+    ``F32_MAX`` elsewhere; ``ind`` is left as it was."""
+    return row_pass(column_pass(ind), metric=metric)
 
 
 def indicator_from_points(points: torch.Tensor, mask: torch.Tensor, height: int,

@@ -27,8 +27,9 @@ import torch
 
 from ..core import geometry as geo
 from ..core import integral
-from ..core.dt import dt_from_indicator
+from ..core.dt import row_pass
 from ..core.types import resolve_device
+from ..ops.columns import column_pass_
 from ..ops.window import tile_shape
 from .. import profiling
 from ..profiling import count, maybe_stage, span, to_device, to_host
@@ -154,7 +155,8 @@ def _build_stack(lines, mask, lhw, params, angles, phys, max_points, device):
             lhw_dev, depth=params.depth, phys_h=phys, phys_w=phys,
             max_points=max_points)
     with span("build.columns"):
-        dt3 = dt_from_indicator(ind, metric=params.distance)
+        # the indicator is this build's own: its column pass runs in place
+        dt3 = row_pass(column_pass_(ind), metric=params.distance)
         del ind
     with span("build.mask"):
         dt3 = torch.where(fm._logical_mask(lhw_dev, phys, phys)[:, None], dt3,

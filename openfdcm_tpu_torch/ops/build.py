@@ -49,6 +49,7 @@ SIGNATURES = {
                            _I, _I, _P],
     "fdcm_window_v3": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                        _I, _I, _I, _P],
+    "fdcm_column_pass": [_P, _P, _P, _L, _I, _I, _P],
 }
 
 

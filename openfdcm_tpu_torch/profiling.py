@@ -44,6 +44,7 @@ _trace: dict = {}
 # the attribute counters counts() mirrors: (module, function, attribute)
 _ATTRIBUTE_COUNTERS = (
     ("matching.optimize", "host_sync", "count"),
+    ("ops.columns", "column_pass", "launches"),
     ("ops.minplus", "minplus_rows", "launches"),
     ("ops.minplus", "minplus_rows_wide", "launches"),
     ("ops.minplus", "far_pass", "launches"),
