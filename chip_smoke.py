@@ -2096,11 +2096,9 @@ def phase_mesh_optimize(banks, params, searcher, optimizer, penalty, device):
     pb = _bucket(max(p.shape[0] for p in pairs), 64)
     lines, mask, align, _, ok = (torch.stack(x) for x in zip(
         *[_scene_candidates(bank, p, s, pb) for p, s in zip(pairs, two)]))
-    mode, window = opt_mod.optimizer_mode(optimizer)
     fs = torch.tensor([[float(w), float(h)] for w, h in fms.feature_sizes],
                       device=fms.dt3.device)
-    kw = dict(mode=mode, window=max(window, 1), cand_ok=ok,
-              dense_steps=opt_mod.dense_step_count(optimizer, int(fs.max())))
+    kw = dict(opt_mod._walk_args(optimizer, int(fs.max())), cand_ok=ok)
     s_count, _, ph, pw = fms.dt3.shape
     with generation(4):
         want, wall_u, _ = timed(lambda: optimize_candidates_batch_kernel(
@@ -2534,16 +2532,14 @@ def phase_optimize_api(banks, params, searcher, device):
             (4, of.BatchOptimize(10)), (4, of.DenseOptimize()),
             (2, of.DefaultOptimize()), (3, of.DefaultOptimize())]
     for version, optimizer in runs:
-        mode, window = opt_mod.optimizer_mode(optimizer)
+        walk = opt_mod._walk_args(optimizer, max(w, h))
         with generation(version):
             out, wall, launches = timed(lambda: opt_mod.optimize_candidates(
                 fm.dt3.reshape(-1), fm.angles, fm.scene_translation,
-                fm.dt3.shape[1:], np.float32([w, h]), lines, mask, align,
-                mode=mode, window=max(window, 1),
-                dense_steps=opt_mod.dense_step_count(optimizer, max(w, h))))
+                fm.dt3.shape[1:], np.float32([w, h]), lines, mask, align, **walk))
             want, wall_search, _ = timed(lambda: of.search(
                 of.DefaultMatch(), searcher, optimizer, fm, bank, scenes[0]))
-        kernel = "K1_window_scores" if mode == "dense" else WINDOW_KERNEL[version]
+        kernel = "K1_window_scores" if walk["mode"] == "dense" else WINDOW_KERNEL[version]
         check_launched(launches, (kernel, "K1_tile_stack"),
                        f"optimize-api {type(optimizer).__name__} gen {version}")
         scores, trans, valid = (x.cpu().numpy() for x in out)

@@ -49,6 +49,37 @@ def sort_matches(matches, max_num_candidates: int | None = None):
     return [matches[i] for i in head] + [matches[i] for i in part[k:]]
 
 
+def _ranking(scores, key=None):
+    """Positions along the last axis of device ``scores`` in rank order:
+    ascending score, ties to the lower ``key`` (a tensor of ``scores``'
+    shape), without one to the lower position, as ``lax.top_k`` breaks
+    them.  Stable sorts only, never ``torch.topk``."""
+    if key is None:
+        return torch.sort(scores, dim=-1, stable=True).indices
+    by_key = torch.sort(key, dim=-1, stable=True).indices
+    by_val = torch.sort(torch.gather(scores, -1, by_key), dim=-1, stable=True).indices
+    return torch.gather(by_key, -1, by_val)
+
+
+def _ranked_rows(scores, *keys, ok, k=None) -> np.ndarray:
+    """Rows of a host table in rank order.  With ``k``: of the rows that are
+    ``ok`` and score finite, the ``k`` first by ascending score, ties by
+    ``keys`` in turn (each an array over the rows), then by row.  With no
+    ``k``: every ``ok`` row in row order (a search's emplace order)."""
+    if k is None:
+        return np.flatnonzero(ok)
+    rows = np.flatnonzero(np.asarray(ok, bool) & np.isfinite(scores))
+    order = np.lexsort([key[rows] for key in reversed(keys)] + [scores[rows]])
+    return rows[order[:k]]
+
+
+def _matches(tmpl, scores, mats, rows=None) -> list:
+    """The :class:`Match` es of ``rows`` (default all, in order) of host
+    ``tmpl``, ``scores`` and ``mats (n, 2, 3)``, each transform a copy."""
+    rows = range(len(scores)) if rows is None else rows
+    return [Match(int(tmpl[j]), float(scores[j]), mats[j].copy()) for j in rows]
+
+
 def _bucket(n: int, quantum: int = 64) -> int:
     return max(quantum, -(-n // quantum) * quantum)
 
@@ -110,6 +141,17 @@ def prepare_templates(templates, lmax_to: int | None = None,
                         lengths, counts)
 
 
+def _bank_on(templates, device, user: str) -> TemplateBank:
+    """``templates`` as a :class:`TemplateBank` on ``device``: host line
+    arrays are uploaded; a bank must lie there already (else raises, naming
+    the ``user`` on ``device``)."""
+    bank = templates if isinstance(templates, TemplateBank) \
+        else prepare_templates(templates, device=device)
+    if bank.device != device:
+        raise ValueError(f"template bank on {bank.device}, {user} on {device}")
+    return bank
+
+
 def _make_candidates(tmpl_lines, pair_t, pair_tl, pair_sl, scenes):
     """Aligned-template candidates for a scene batch.
 
@@ -156,14 +198,13 @@ def _penalized_topk(scores, mats, valid, ok, tof, lengths, tau, k):
     """Penalize by ``score / max(len, 1e-6)^tau`` (``tau`` NaN: no penalty;
     reference ``exponentialpenalty.cpp:39-45``, the power through
     :func:`~openfdcm_tpu_torch.core.geometry.pow_f32`) and keep each
-    scene's ``k`` best of the candidates that are ``valid & ok``, ranked
-    with a stable sort so ties go to the lowest candidate index, as
-    ``lax.top_k`` breaks them.  Returns ``(scores_k, mats_k, idx_k,
-    valid_k)``."""
+    scene's ``k`` best of the candidates that are ``valid & ok``
+    (:func:`_ranking`: ties to the lowest candidate index).  Returns
+    ``(scores_k, mats_k, idx_k, valid_k)``."""
     pscores = scores if np.isnan(tau) else \
         scores / geo.pow_f32(torch.clamp_min(lengths[tof], 1e-6), tau)
     masked = torch.where(valid & ok, pscores, float("inf"))
-    idx = torch.sort(masked, dim=1, stable=True).indices[:, :k]
+    idx = _ranking(masked)[:, :k]
     rows = torch.arange(scores.shape[0], device=scores.device)[:, None]
     return (torch.gather(masked, 1, idx), mats[rows, idx], idx,
             torch.gather(valid, 1, idx))
@@ -231,13 +272,11 @@ def _gather_rerank(device, k, vals, gidx, *extras):
     """The cross-shard merge of the cand- and bank-sharded top-k paths (JAX
     ``match._gather_rerank``): per-shard ``(S, kk)`` scores ``vals`` and
     global candidate indices ``gidx`` (lists, one entry per shard) gathered
-    onto ``device`` and ranked by (score, global index); ``extras``: lists
-    of per-shard ``(S, kk, ...)`` tensors reordered the same way.  Returns
-    ``(vals_k, gidx_k, *extras_k)`` of width ``k``."""
+    onto ``device`` and ranked by (score, global index) (:func:`_ranking`);
+    ``extras``: lists of per-shard ``(S, kk, ...)`` tensors reordered the
+    same way.  Returns ``(vals_k, gidx_k, *extras_k)`` of width ``k``."""
     fv, fi = _gather(vals, device), _gather(gidx, device)
-    by_idx = torch.sort(fi, dim=1, stable=True).indices
-    by_val = torch.sort(torch.gather(fv, 1, by_idx), dim=1, stable=True).indices
-    order = torch.gather(by_idx, 1, by_val)[:, :k]
+    order = _ranking(fv, fi)[:, :k]
 
     def take(parts):
         flat = _gather(parts, device)
@@ -294,17 +333,13 @@ def _search_device_batch_topk_sharded(mesh, tmpl_lines, tmpl_mask, pair_t,
         for j in range(n_cand):
             dev = mesh.device(**{scene_axis: i, cand_axis: j})
             cols = slice(j * p_blk, (j + 1) * p_blk)
-            pt, ptl, psl, pv = _on(dev, pair_t[rows, cols], pair_tl[rows, cols],
-                                   pair_sl[rows, cols], pair_valid[rows, cols])
-            ok = pv.repeat_interleave(2, dim=1)
-            scores, mats, valid = _search_device_batch(
-                *_replicas(mesh, dev, tmpl_lines, tmpl_mask), pt, ptl, psl,
-                *_on(dev, scenes[rows], li[rows], angles, scene_tr[rows],
-                     feature_size[rows]),
-                mode=mode, window=window, dense_steps=dense_steps, cand_ok=ok)
-            sk, mk, idx, vk = _penalized_topk(
-                scores, mats, valid, ok, pt.repeat_interleave(2, dim=1),
-                mesh.replica(lengths, dev), tau, kk)
+            sk, mk, idx, vk = _search_device_batch_topk(
+                *_replicas(mesh, dev, tmpl_lines, tmpl_mask),
+                *_on(dev, pair_t[rows, cols], pair_tl[rows, cols],
+                     pair_sl[rows, cols], scenes[rows], li[rows], angles,
+                     scene_tr[rows], feature_size[rows]),
+                mesh.replica(lengths, dev), tau, pair_valid[rows, cols].to(dev),
+                mode=mode, window=window, dense_steps=dense_steps, k=kk)
             shards.append((sk, mk, idx + j * c_local, vk))
         sk, mk, ik, vk = zip(*shards)
         if n_cand > 1:
@@ -369,33 +404,28 @@ def search(matcher, searcher, optimizer, featuremap, templates, scene,
     replicated stack (:func:`~openfdcm_tpu_torch.parallel.optimize_candidates_sharded`),
     with the same result."""
     del matcher                     # single strategy, kept for API parity
-    from .pipeline import Dt3FeaturemapBatch, _search_batch_arrays
+    from .pipeline import Dt3FeaturemapBatch, _host_matches, _search_batch_arrays
     dev = featuremap.dt3.device
     if mesh is not None:
         mesh.require_local("search")
         mesh.resolve(dev)           # the feature map's device is in the mesh
-    bank = templates if isinstance(templates, TemplateBank) \
-        else prepare_templates(templates, device=dev)
-    if bank.device != dev:
-        raise ValueError(f"template bank on {bank.device}, feature map on {dev}")
+    bank = _bank_on(templates, dev, "feature map")
     scene_arr = geo.as_lines_np(scene) if np.asarray(scene).size \
         else np.zeros((0, 4), np.float32)
     if not bank.host or scene_arr.shape[0] == 0 \
             or featuremap.feature_size == (0, 0):
         return []
     if mesh is not None:
-        pairs, scores, mats, valid = _search_cand_sharded(
-            mesh, searcher, optimizer, featuremap, bank, scene_arr)
+        item = _search_cand_sharded(mesh, searcher, optimizer, featuremap, bank,
+                                    scene_arr)
     else:
         one = Dt3FeaturemapBatch(
             dt3=featuremap.dt3[None], angles=featuremap.angles,
             scene_translations=featuremap.scene_translation[None],
             feature_sizes=(tuple(featuremap.feature_size),),
             params=featuremap.params)
-        (pairs, scores, mats, valid), = _search_batch_arrays(
-            searcher, optimizer, one, bank, [scene_arr])
-    return [Match(int(pairs[j // 2, 0]), float(scores[j]), mats[j].copy())
-            for j in range(2 * pairs.shape[0]) if valid[j]]
+        item, = _search_batch_arrays(searcher, optimizer, one, bank, [scene_arr])
+    return _host_matches(item, None, None, None)
 
 
 def _scene_candidates(bank, pairs, scene_arr, pb):
@@ -404,16 +434,16 @@ def _scene_candidates(bank, pairs, scene_arr, pb):
     L), cand_align (2pb, 2), transforms (2pb, 2, 3), cand_ok (2pb,))``, the
     padding's candidates not ok.  As :func:`_search_device_batch` makes
     them."""
+    from .pipeline import _scene_tables
     dev = bank.device
     padded = np.zeros((pb, 3), np.int64)
     padded[: pairs.shape[0]] = pairs
-    scene_pad = np.zeros((_bucket(scene_arr.shape[0], 128), 4), np.float32)
-    scene_pad[: scene_arr.shape[0]] = scene_arr
+    scene_pad, _ = _scene_tables([scene_arr])
     as_dev = lambda a: torch.as_tensor(a, device=dev)
     pt = as_dev(padded[:, 0])
     aligned, transforms, align_vecs = _make_candidates(
         bank.lines, pt[None], as_dev(padded[None, :, 1]),
-        as_dev(padded[None, :, 2]), as_dev(scene_pad)[None])
+        as_dev(padded[None, :, 2]), as_dev(scene_pad))
     c = 2 * pb
     return (aligned.reshape(c, bank.lmax, 4),
             bank.mask[pt].repeat_interleave(2, dim=0),
@@ -433,15 +463,13 @@ def _search_cand_sharded(mesh, searcher, optimizer, featuremap, bank, scene_arr)
     pb = _bucket(max(pairs.shape[0], 1), int(np.lcm(64, mesh.axis_size("cand"))))
     cand_lines, cand_mask, cand_align, transforms, ok = _scene_candidates(
         bank, pairs, scene_arr, pb)
-    mode, window = opt.optimizer_mode(optimizer)
     w, h = featuremap.feature_size
     _, ph, pw = featuremap.dt3.shape
     scores, translations, valid = optimize_candidates_sharded(
         mesh, featuremap.dt3.reshape(-1), featuremap.angles,
         featuremap.scene_translation, (ph, pw),
         torch.tensor([float(w), float(h)], device=bank.device), cand_lines,
-        cand_mask, cand_align, mode=mode, window=max(window, 1),
-        dense_steps=opt.dense_step_count(optimizer, max(w, h)), cand_ok=ok)
+        cand_mask, cand_align, cand_ok=ok, **opt._walk_args(optimizer, max(w, h)))
     mats = transforms.clone()
     mats[..., 2] += translations
     return (pairs, scores.cpu().numpy(), mats.cpu().numpy(),

@@ -90,6 +90,15 @@ def dense_step_count(optimizer, max_wh: int) -> int:
     return -(-max(steps, 1) // 64) * 64
 
 
+def _walk_args(optimizer, extent: int) -> dict:
+    """The ``mode``, ``window`` (at least 1) and ``dense_steps`` keyword
+    arguments of every optimize call for ``optimizer`` on a canvas whose
+    largest logical side is ``extent``."""
+    mode, window = optimizer_mode(optimizer)
+    return dict(mode=mode, window=max(window, 1),
+                dense_steps=dense_step_count(optimizer, extent))
+
+
 def optimize_candidates(dt3_flat, angles, scene_tr, hw, feature_size,
                         tmpl_lines, line_mask, align_vecs, *, mode: str,
                         window: int, dense_steps: int, take_fn=None):
@@ -147,14 +156,13 @@ def optimize(optimizer, templates, alignments, featuremap):
     for i, a in enumerate(arrs):
         lines[i, :a.shape[0]] = a
         mask[i, :a.shape[0]] = True
-    mode, window = optimizer_mode(optimizer)
     w, h = featuremap.feature_size
     scores, trans, valid = optimize_candidates(
         featuremap.dt3.reshape(-1), featuremap.angles,
         featuremap.scene_translation, featuremap.dt3.shape[1:],
         np.asarray([w, h], np.float32), lines, mask,
-        np.asarray(alignments, np.float32).reshape(c, 2), mode=mode,
-        window=max(window, 1), dense_steps=dense_step_count(optimizer, max(w, h)))
+        np.asarray(alignments, np.float32).reshape(c, 2),
+        **_walk_args(optimizer, max(w, h)))
     scores, trans, valid = (scores.cpu().numpy(), trans.cpu().numpy(),
                             valid.cpu().numpy())
     return [(float(scores[i]), trans[i].copy()) if valid[i] else None

@@ -35,10 +35,10 @@ from .. import profiling
 from ..profiling import count, maybe_stage, span, to_device, to_host
 from . import featuremap as fm
 from . import optimize as opt
-from .match import (Match, TemplateBank, _bucket, _genpairs_topk_sharded,
-                    _search_device_batch, _search_device_batch_sharded,
+from .match import (_bank_on, _bucket, _genpairs_topk_sharded, _matches,
+                    _ranked_rows, _search_device_batch, _search_device_batch_sharded,
                     _search_device_batch_topk, _search_device_batch_topk_genpairs,
-                    _search_device_batch_topk_sharded, prepare_templates)
+                    _search_device_batch_topk_sharded)
 from .optimize_kernel import kernel_version
 from .penalty import DefaultPenalty, ExponentialPenalty
 from .search import (ConcentricRangeStrategy, DefaultSearch, bank_line_table,
@@ -51,16 +51,20 @@ CPU_BUDGET = 1 << 30
 
 def _bank_pairs_for_scene(searcher, bank, scene_arr) -> np.ndarray:
     """``(tmpl_id, tmpl_line, scene_line)`` pairs of the whole bank against
-    one scene, in reference emplace order; vectorized for the built-in
+    one scene, in reference emplace order (:func:`_template_pairs`)."""
+    return _template_pairs(searcher, bank.lengths_np, bank.counts_np,
+                           bank.host, scene_arr)
+
+
+def _template_pairs(searcher, lengths, counts, host, scene_arr) -> np.ndarray:
+    """Pairs of the templates of padded line ``lengths (T, lmax)``, line
+    ``counts (T,)`` and line arrays ``host`` against one scene, their ids
+    ``0..T-1``, in reference emplace order; vectorized for the built-in
     strategies and their subclasses, per template otherwise."""
     if isinstance(searcher, (DefaultSearch, ConcentricRangeStrategy)):
-        return bank_pairs(searcher, bank.lengths_np, bank.counts_np, scene_arr)
-    pairs = []
-    for ti, t in enumerate(bank.host):
-        if t.shape[0] == 0:
-            continue
-        for tl, sl in establish_search_strategy(searcher, t, scene_arr):
-            pairs.append((ti, tl, sl))
+        return bank_pairs(searcher, lengths, counts, scene_arr)
+    pairs = [(ti, tl, sl) for ti, t in enumerate(host) if t.shape[0]
+             for tl, sl in establish_search_strategy(searcher, t, scene_arr)]
     return np.asarray(pairs, np.int32).reshape(-1, 3)
 
 
@@ -296,10 +300,7 @@ def match_many_async(scenes, templates, params: fm.Dt3Params, searcher,
             device = _call_device(mesh, device, "match_many_async")
             opt.optimizer_mode(optimizer)      # an unknown optimizer raises here
             kernel_version()                   # a non-integer generation raises here
-            bank = templates if isinstance(templates, TemplateBank) \
-                else prepare_templates(templates, device=device)
-            if bank.device != device:
-                raise ValueError(f"template bank on {bank.device}, search on {device}")
+            bank = _bank_on(templates, device, "search")
 
             lengths = None
             if penalty is not None:
@@ -371,11 +372,13 @@ def match_many_async(scenes, templates, params: fm.Dt3Params, searcher,
                 per_scene = fin()
                 with span("collect.match"):
                     for i, rows in zip(idxs, per_scene):
-                        out[i] = [Match(t, s, m.copy()) for (s, t, m) in rows[:top_k]]
+                        s, t, m = zip(*rows[:top_k]) if rows else ((),) * 3
+                        out[i] = _matches(t, s, m)
             for idxs, res in host_results:
                 with span("collect.match"):
                     for i, item in zip(idxs, res):
-                        out[i] = _host_matches(item, penalty, lengths, top_k)
+                        out[i] = _host_matches(item, penalty, lengths, top_k,
+                                               penalized=post is not None)
         return out
 
     return collect
@@ -433,27 +436,30 @@ def _template_parts(bank, mt: int, t_ranges) -> list:
     return bank.derived(("template_parts", mt, tuple(t_ranges)), make)
 
 
-def _host_matches(item, penalty, lengths, top_k) -> list:
-    """One scene's matches from the host ranking path: its ``("topk",
-    rows)`` from the device top-k, or its full ``(pairs, scores, mats,
-    valid)``, penalized on the host and either kept whole in emplace order
-    (no ``top_k``) or ranked by (score, candidate index)."""
-    if isinstance(item[0], str):               # ("topk", rows)
-        return [Match(t, s, m.copy()) for (s, _, t, m) in item[1][:top_k]]
+def _host_matches(item, penalty, lengths, top_k, penalized=False) -> list:
+    """One scene's matches from the host ranking path, from its ``(pairs,
+    scores, mats, valid)`` (:func:`_search_chunk_convert`): penalized on the
+    host unless the device did (``penalized``), then either kept whole in
+    emplace order (no ``top_k``) or ranked by (score, candidate index)."""
     pairs, scores, mats, valid = item
     tmpl_idx = np.repeat(pairs[:, 0], 2)
-    pscores = scores.astype(np.float32)
-    if penalty is not None:
-        pscores = np.asarray(penalty.apply(pscores, lengths[tmpl_idx]),
-                             np.float32)
-    if top_k is None:
-        sel = np.nonzero(valid)[0]
-    else:
-        masked = np.where(valid, pscores, np.inf)
-        sel = np.lexsort((np.arange(len(masked)), masked))[:top_k]
-        sel = sel[np.isfinite(masked[sel])]
-    return [Match(int(tmpl_idx[j]), float(pscores[j]), mats[j].copy())
-            for j in sel]
+    if penalty is not None and not penalized:
+        scores = np.asarray(penalty.apply(scores, lengths[tmpl_idx]), np.float32)
+    return _matches(tmpl_idx, scores, mats, _ranked_rows(scores, ok=valid, k=top_k))
+
+
+def _scene_tables(arrs, feature_sizes=()) -> tuple:
+    """A dispatch's host scene tables: the scenes' ``(N_i, 4)`` line arrays
+    padded into one ``(S, nb, 4)`` f32 array (``nb`` a 128-line bucket) and
+    the ``(len(feature_sizes), 2)`` f32 table of their logical ``(w,
+    h)``."""
+    scene_arr = np.zeros((len(arrs), _bucket(max((a.shape[0] for a in arrs),
+                                                 default=1), 128), 4), np.float32)
+    for i, a in enumerate(arrs):
+        scene_arr[i, : a.shape[0]] = a
+    fs = np.asarray([[float(w), float(h)] for w, h in feature_sizes],
+                    np.float32).reshape(-1, 2)
+    return scene_arr, fs
 
 
 def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
@@ -468,8 +474,8 @@ def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
     Returns a ``collect()`` closure that copies the packed top-k rows to the
     host and returns, per scene, the ranked ``(penalized_score, tmpl_idx,
     mat (2, 3))`` rows of the valid, finite candidates, merged across
-    template chunks by (score, chunk, rank) as the JAX package merges them,
-    which equals the unchunked order."""
+    template parts by (score, part, rank) as the JAX package merges them
+    (:func:`~.match._ranked_rows`), which equals the unsplit order."""
     lengths_dev, tau, top_k = post
     s_total = len(featuremaps)
     device = featuremaps.dt3.device
@@ -483,18 +489,13 @@ def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
         annulus = ((*searcher.center_position, searcher.low_boundary,
                     searcher.high_boundary)
                    if isinstance(searcher, ConcentricRangeStrategy) else None)
-        mode, window = opt.optimizer_mode(optimizer)
-
-        nb = _bucket(max((a.shape[0] for a in arrs), default=1), 128)
-        scene_arr = np.zeros((s_total, nb, 4), np.float32)
+        scene_arr, fs = _scene_tables(arrs, featuremaps.feature_sizes)
+        nb = scene_arr.shape[1]
         slen_arr = np.zeros((s_total, nb), np.float32)
         svalid_arr = np.zeros((s_total, nb), bool)
         for i, a in enumerate(arrs):
-            scene_arr[i, : a.shape[0]] = a
             slen_arr[i], svalid_arr[i] = scene_length_mask(a, nb, annulus)
-        fs = np.asarray([[float(w), float(h)] for (w, h) in featuremaps.feature_sizes],
-                        np.float32)
-        dense_steps = opt.dense_step_count(optimizer, int(fs.max()))
+        walk = opt._walk_args(optimizer, int(fs.max()))
         # the scenes' tables go to the card once a dispatch, whatever its
         # scene chunks and template parts
         scene_tables = [to_device(a, device) for a in (scene_arr, slen_arr, svalid_arr, fs)]
@@ -522,8 +523,7 @@ def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
                         _rows(featuremaps.dt3, rows), featuremaps.angles,
                         _rows(featuremaps.scene_translations, rows), fs_rows,
                         lengths_part, tau)
-                kw = dict(mode=mode, window=max(window, 1), dense_steps=dense_steps,
-                          k=kk, ms=ms)
+                kw = dict(walk, k=kk, ms=ms)
                 count("search.template_parts")
                 count("search.candidates", scenes.shape[0] * 2 * (t1 - t0) * mt * ms)
                 sk, mk, tk, vk = (_genpairs_topk_sharded(mesh, *args, **kw)
@@ -542,18 +542,18 @@ def _genpairs_batch_dispatch(searcher, optimizer, featuremaps, bank, arrs,
         out = []
         for n_scenes, parts in packed:
             with span("collect.copy"):
-                host = [(t0, to_host(p)) for t0, p in parts]
+                host = [to_host(p) for _, p in parts]
             with span("collect.rows"):
-                merged = [[] for _ in range(n_scenes)]
-                for ci, (t0, p) in enumerate(host):
-                    for row, rows in zip(p, merged):
-                        rows.extend((float(r[0]), ci, j, int(r[1]) + t0,
-                                     r[3:9].reshape(2, 3))
-                                    for j, r in enumerate(row)
-                                    if r[2] > 0.5 and np.isfinite(r[0]))
-                for rows in merged:
-                    rows.sort(key=lambda r: r[:3])
-                    out.append([(sc, t, m) for (sc, _, _, t, m) in rows])
+                widths = [p.shape[1] for p in host]
+                rows = np.concatenate(host, axis=1)[:n_scenes]
+                part = np.repeat(np.arange(len(host)), widths)
+                rank = np.concatenate([np.arange(n) for n in widths])
+                tmpl = rows[..., 1].astype(np.int64) \
+                    + np.repeat([t0 for t0, _ in parts], widths)
+                mats = rows[..., 3:9].reshape(*rows.shape[:2], 2, 3)
+                for sc, tm, mt, ok in zip(rows[..., 0], tmpl, mats, rows[..., 2] > 0.5):
+                    sel = _ranked_rows(sc, part, rank, ok=ok, k=sc.size)
+                    out.append(list(zip(sc[sel].tolist(), tm[sel].tolist(), mt[sel])))
         return out
     return collect
 
@@ -572,19 +572,10 @@ def search_batch(matcher, searcher, optimizer, featuremaps: Dt3FeaturemapBatch,
     if mesh is not None:
         mesh.require_local("search_batch")
         mesh.resolve(dev)           # the feature maps' device is in the mesh
-    bank = templates if isinstance(templates, TemplateBank) \
-        else prepare_templates(templates, device=dev)
-    if bank.device != dev:
-        raise ValueError(f"template bank on {bank.device}, feature maps on {dev}")
-    out = []
-    for pairs, scores, mats, valid in _search_batch_arrays(
-            searcher, optimizer, featuremaps, bank,
-            [geo.as_lines_np(s) for s in scenes], scene_chunk=scene_chunk,
-            mesh=mesh):
-        out.append([Match(int(pairs[j // 2, 0]), float(scores[j]),
-                          mats[j].copy())
-                    for j in range(2 * pairs.shape[0]) if valid[j]])
-    return out
+    bank = _bank_on(templates, dev, "feature maps")
+    return [_host_matches(item, None, None, None) for item in _search_batch_arrays(
+        searcher, optimizer, featuremaps, bank, [geo.as_lines_np(s) for s in scenes],
+        scene_chunk=scene_chunk, mesh=mesh)]
 
 
 def _search_batch_arrays(searcher, optimizer, featuremaps, bank, arrs,
@@ -592,9 +583,10 @@ def _search_batch_arrays(searcher, optimizer, featuremaps, bank, arrs,
                          mesh=None) -> list:
     """Array-level batched search on host pair tables: per scene ``(pairs
     (P, 3), scores (2P,), mats (2P, 2, 3), valid (2P,))`` in reference
-    emplace order (pair-major, polarity-minor), or with ``post = (lengths,
-    tau, k)`` its device top-k ``("topk", [(score, cand_idx, tmpl_idx,
-    mat), ...])``.  ``arrs``: the scenes' ``(N, 4)`` line arrays.  With a
+    emplace order (pair-major, polarity-minor); with ``post = (lengths,
+    tau, k)`` the device's penalized scores, only the candidates of each
+    pair part's device top-k valid.  ``arrs``: the scenes' ``(N, 4)`` line
+    arrays.  With a
     ``mesh``, chunks are a multiple of its ``"scene"`` axis (padded with
     repeats of their first scene) and each is searched on the mesh
     (:func:`_search_chunk_dispatch`)."""
@@ -630,25 +622,20 @@ def _search_chunk_dispatch(searcher, optimizer, featuremaps, bank, arrs,
     pairs (their bucket a multiple of ``lcm(64, n_cand)``) along its
     ``"cand"`` axis (:func:`~.match._search_device_batch_topk_sharded`,
     :func:`~.match._search_device_batch_sharded`).  Returns
-    ``(per_scene_pairs, parts, with_topk)``."""
+    ``(per_scene_pairs, parts)``, a part ``(sel, (scores, mats, cand_idx,
+    valid))``: its device top-k, or with no ``post`` every candidate
+    (``cand_idx`` None)."""
     s_count = len(featuremaps)
     device = featuremaps.dt3.device
     per_scene_pairs = [_bank_pairs_for_scene(searcher, bank, a) for a in arrs]
     pmax = max((p.shape[0] for p in per_scene_pairs), default=0)
     if pmax == 0:
-        return per_scene_pairs, [], post is not None
-    nb = _bucket(max(a.shape[0] for a in arrs), 128)
-    scene_arr = np.zeros((s_count, nb, 4), np.float32)
-    for i, a in enumerate(arrs):
-        scene_arr[i, : a.shape[0]] = a
-    mode, window = opt.optimizer_mode(optimizer)
-    fs = np.asarray([[float(w), float(h)] for (w, h) in featuremaps.feature_sizes],
-                    np.float32)
-    dense_steps = opt.dense_step_count(optimizer, int(fs.max()))
+        return per_scene_pairs, []
+    scene_arr, fs = _scene_tables(arrs, featuremaps.feature_sizes)
     as_dev = lambda a: to_device(a, device)
     common = (as_dev(scene_arr), featuremaps.dt3, featuremaps.angles,
               featuremaps.scene_translations, as_dev(fs))
-    kw = dict(mode=mode, window=max(window, 1), dense_steps=dense_steps)
+    kw = opt._walk_args(optimizer, int(fs.max()))
     n_dp = 1 if mesh is None else mesh.axis_size("scene")
     quantum = 64 if mesh is None else int(np.lcm(64, mesh.axis_size("cand")))
     p_chunk = max(64, _cands_per_dispatch(s_count // n_dp, bank.lmax,
@@ -674,58 +661,36 @@ def _search_chunk_dispatch(searcher, optimizer, featuremaps, bank, arrs,
         else:
             args = (bank.lines, bank.mask, *pairs_dev, *common)
             ok = as_dev(pv).repeat_interleave(2, dim=1)
-            parts.append((sel, _search_device_batch(*args, cand_ok=ok, **kw)
-                          if mesh is None else
-                          _search_device_batch_sharded(mesh, *args, cand_ok=ok,
-                                                       **kw)))
-    return per_scene_pairs, parts, post is not None
+            scores, mats, valid = (
+                _search_device_batch(*args, cand_ok=ok, **kw) if mesh is None
+                else _search_device_batch_sharded(mesh, *args, cand_ok=ok, **kw))
+            parts.append((sel, (scores, mats, None, valid)))
+    return per_scene_pairs, parts
 
 
-def _convert_topk(per_scene_pairs, parts):
-    """Merge per-part device top-k results into per-scene ranked lists
-    ``("topk", [(score, global_cand_idx, tmpl_idx, mat), ...])``, ordered
-    by (score, candidate index in emplace order)."""
-    parts = [(sel, tuple(to_host(x) for x in dev)) for sel, dev in parts]
-    out = []
-    for i, pairs in enumerate(per_scene_pairs):
-        rows = []
-        for sel, (sk, mk, ik, vk) in parts:
-            s = sel[i]
-            for j in range(sk.shape[1]):
-                if not vk[i, j] or not np.isfinite(sk[i, j]):
-                    continue
-                local = int(ik[i, j])
-                pair_pos = local // 2
-                if pair_pos >= len(s):
-                    continue            # padded pair slot
-                gidx = 2 * int(s[pair_pos]) + local % 2
-                rows.append((float(sk[i, j]), gidx,
-                             int(pairs[s[pair_pos], 0]), mk[i, j]))
-        rows.sort(key=lambda r: (r[0], r[1]))
-        out.append(("topk", rows))
-    return out
-
-
-def _search_chunk_convert(per_scene_pairs, parts, with_topk):
-    """Host arrays of one scene chunk from :func:`_search_chunk_dispatch`:
-    the parts scattered back into each scene's emplace order (one copy per
-    device tensor), or :func:`_convert_topk`."""
-    if with_topk:
-        return _convert_topk(per_scene_pairs, parts)
-    parts = [(sel, *(to_host(x) for x in dev)) for sel, dev in parts]
+def _search_chunk_convert(per_scene_pairs, parts):
+    """Host arrays of one scene chunk from :func:`_search_chunk_dispatch`,
+    per scene ``(pairs, scores (2P,), mats (2P, 2, 3), valid (2P,))``: each
+    part's rows (one copy per device tensor) scattered back to their
+    candidates in the scene's emplace order; the candidates a part's top-k
+    left out are not valid."""
+    parts = [(sel, *(None if x is None else to_host(x) for x in dev))
+             for sel, dev in parts]
     out = []
     for i, pairs in enumerate(per_scene_pairs):
         n = 2 * pairs.shape[0]
         scores = np.zeros((n,), np.float32)
         mats = np.zeros((n, 2, 3), np.float32)
         valid = np.zeros((n,), bool)
-        for sel, s_np, m_np, v_np in parts:
+        for sel, s_np, m_np, i_np, v_np in parts:
             s = sel[i]
-            # pair j maps to candidates 2j and 2j+1 (polarity-minor order)
-            cidx = np.stack([2 * s, 2 * s + 1], axis=1).reshape(-1)
-            k = 2 * len(s)
-            scores[cidx] = s_np[i, :k]
-            mats[cidx] = m_np[i, :k]
-            valid[cidx] = v_np[i, :k]
+            local = np.arange(s_np.shape[1]) if i_np is None else i_np[i]
+            keep = local < 2 * len(s)            # not a padded pair slot
+            # the part's pair j is the scene's pair s[j]: candidates 2 s[j]
+            # and 2 s[j] + 1 (polarity-minor order)
+            cidx = 2 * s[local[keep] // 2] + local[keep] % 2
+            scores[cidx] = s_np[i][keep]
+            mats[cidx] = m_np[i][keep]
+            valid[cidx] = v_np[i][keep]
         out.append((pairs, scores, mats, valid))
     return out

@@ -24,12 +24,11 @@ import torch
 
 from ..core import geometry as geo
 from ..matching import optimize as opt
-from ..matching.match import (Match, _bucket, _gather_rerank, _penalized_topk,
-                              _search_device_batch)
+from ..matching.match import (_bucket, _gather_rerank, _matches,
+                              _search_device_batch_topk)
 from ..matching.penalty import DefaultPenalty, ExponentialPenalty
-from ..matching.pipeline import build_featuremap_batch
-from ..matching.search import (ConcentricRangeStrategy, DefaultSearch,
-                               bank_pairs, establish_search_strategy)
+from ..matching.pipeline import (_scene_tables, _template_pairs,
+                                 build_featuremap_batch)
 from .mesh import Mesh
 
 __all__ = ["prepare_bank_shards", "match_many_bank_sharded"]
@@ -66,19 +65,9 @@ def prepare_bank_shards(templates, n_bank: int):
 def _shard_pairs(searcher, shards, scene_arr, b: int) -> np.ndarray:
     """Pairs of bank shard ``b`` against one scene, template ids local to
     the shard, in reference emplace order within the shard."""
-    t_shard = shards["t_shard"]
-    lo, hi = b * t_shard, (b + 1) * t_shard
-    if isinstance(searcher, (DefaultSearch, ConcentricRangeStrategy)):
-        return bank_pairs(searcher, shards["line_lengths"][lo:hi],
-                          shards["counts"][lo:hi], scene_arr)
-    pairs = []
-    for ti in range(lo, min(hi, shards["t_real"])):
-        t = shards["host"][ti]
-        if t.shape[0] == 0:
-            continue
-        for tl, sl in establish_search_strategy(searcher, t, scene_arr):
-            pairs.append((ti - lo, tl, sl))
-    return np.asarray(pairs, np.int64).reshape(-1, 3)
+    rows = slice(b * shards["t_shard"], (b + 1) * shards["t_shard"])
+    return _template_pairs(searcher, shards["line_lengths"][rows],
+                           shards["counts"][rows], shards["host"][rows], scene_arr)
 
 
 def match_many_bank_sharded(scenes, templates, params, searcher, optimizer,
@@ -152,8 +141,8 @@ def _dispatch_chunk(arrs, searcher, optimizer, params, mesh, shards, tables,
     out_dev = mesh.resolve()
     fms = build_featuremap_batch(arrs, params, pad_to=pad_to, device=out_dev,
                                  mesh=mesh)
-    fs = torch.tensor([[float(w), float(h)] for (w, h) in fms.feature_sizes],
-                      device=out_dev)
+    scene_arr, fs = _scene_tables(arrs, fms.feature_sizes)
+    walk = opt._walk_args(optimizer, int(fs.max()))
     per = [[_shard_pairs(searcher, shards, a, b) for b in range(n_bank)]
            for a in arrs]
     pb = _bucket(max((p.shape[0] for row in per for p in row), default=1), 64)
@@ -163,13 +152,7 @@ def _dispatch_chunk(arrs, searcher, optimizer, params, mesh, shards, tables,
         for b, p in enumerate(row):
             pair_arr[i, b * pb: b * pb + p.shape[0]] = p
             pair_valid[i, b * pb: b * pb + p.shape[0]] = True
-    scene_arr = np.zeros((s_count, _bucket(max(a.shape[0] for a in arrs), 128), 4),
-                         np.float32)
-    for i, a in enumerate(arrs):
-        scene_arr[i, : a.shape[0]] = a
 
-    mode, window = opt.optimizer_mode(optimizer)
-    dense_steps = opt.dense_step_count(optimizer, int(fs.max()))
     kk = min(top_k, 2 * pb)
     s_blk = s_count // n_sc
     rows_out = []
@@ -182,19 +165,15 @@ def _dispatch_chunk(arrs, searcher, optimizer, params, mesh, shards, tables,
             cols = slice(b * pb, (b + 1) * pb)
             pt, ptl, psl = (torch.as_tensor(pair_arr[rows, cols, j], device=dev)
                             for j in range(3))
-            ok = torch.as_tensor(pair_valid[rows, cols],
-                                 device=dev).repeat_interleave(2, dim=1)
-            scores, mats, valid = _search_device_batch(
+            sk, mk, idx, _ = _search_device_batch_topk(
                 lines, mask, pt, ptl, psl,
                 torch.as_tensor(scene_arr[rows], device=dev),
                 fms.dt3[rows].to(dev), fms.angles.to(dev),
-                fms.scene_translations[rows].to(dev), fs[rows].to(dev),
-                mode=mode, window=max(window, 1), dense_steps=dense_steps,
-                cand_ok=ok)
-            tof = pt.repeat_interleave(2, dim=1)              # local ids
-            sk, mk, idx, _ = _penalized_topk(scores, mats, valid, ok, tof,
-                                             lengths, tau, kk)
-            shard_rows.append((sk, torch.gather(tof, 1, idx) + b * t_shard,
+                fms.scene_translations[rows].to(dev),
+                torch.as_tensor(fs[rows], device=dev), lengths, tau,
+                torch.as_tensor(pair_valid[rows, cols], device=dev), k=kk, **walk)
+            # candidate c is pair c // 2's, whose template id is shard-local
+            shard_rows.append((sk, torch.gather(pt, 1, idx // 2) + b * t_shard,
                                idx + b * (2 * pb), mk))
         sk, tk, gk, mk = zip(*shard_rows)
         if n_bank > 1:
@@ -204,6 +183,5 @@ def _dispatch_chunk(arrs, searcher, optimizer, params, mesh, shards, tables,
             sk, mk, tk = sk[0], mk[0], tk[0]
         rows_out.append((sk, mk, tk))
     sk, mk, tk = (Mesh.all_gather(x, out_dev).cpu().numpy() for x in zip(*rows_out))
-    return [[Match(int(tk[i, j]), float(sk[i, j]), mk[i, j].copy())
-             for j in range(sk.shape[1]) if np.isfinite(sk[i, j])][:top_k]
+    return [_matches(tk[i], sk[i], mk[i], np.flatnonzero(np.isfinite(sk[i]))[:top_k])
             for i in range(s_count)]

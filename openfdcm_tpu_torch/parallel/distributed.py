@@ -177,6 +177,7 @@ def global_topk(mesh: Mesh, scores, valid, k: int, axis: str = "cand"):
     every process gets the same result (the JAX package's replicated
     output).  A process takes part in every line that holds one of its
     entries, in mesh order."""
+    from ..matching.match import _ranking
     from .sharded import topk_candidates    # sharded imports mesh, mesh this module
     n = mesh.axis_size(axis)
     if scores.shape[0] % n:
@@ -200,8 +201,7 @@ def global_topk(mesh: Mesh, scores, valid, k: int, axis: str = "cand"):
             idxs.append(ik + b * c_local)
         fv = mesh.all_gather(vals, scores.device, owners=owners)
         fi = mesh.all_gather(idxs, scores.device, owners=owners)
-        by_idx = torch.sort(fi, stable=True).indices
-        order = by_idx[torch.sort(fv[by_idx], stable=True).indices][:k]
+        order = _ranking(fv, fi)[:k]
         return fv[order], fi[order]
 
     lines = []

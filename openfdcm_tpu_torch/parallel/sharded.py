@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core.types import resolve_device
+from ..matching.match import _ranking
 from ..matching.optimize_kernel import optimize_candidates_batch_kernel
 from .distributed import all_gather_tensors, process_index
 from .mesh import Mesh, Shard, ShardedTensor
@@ -178,9 +179,9 @@ def optimize_candidates_sharded_batch(mesh: Mesh, dt3_flat, angles, scene_tr,
 
 def topk_candidates(scores, valid, k: int):
     """Deterministic top-k of candidate scores (ascending = best): invalid
-    candidates rank last, ties go to the lowest candidate index (a stable
-    sort on (score, index), never ``torch.topk``).  Returns ``(scores_k,
-    idx_k)``."""
+    candidates rank last, ties go to the lowest candidate index
+    (:func:`~openfdcm_tpu_torch.matching.match._ranking`).  Returns
+    ``(scores_k, idx_k)``."""
     masked = torch.where(valid, scores, float("inf"))
-    idx = torch.sort(masked, stable=True).indices[:k]
+    idx = _ranking(masked)[:k]
     return masked[idx], idx

@@ -207,14 +207,10 @@ def search_spatial(searcher, optimizer, featuremap: fm.Dt3Featuremap,
     to the unsharded ``search``'s."""
     mesh.require_local("search_spatial")
     from ..matching import optimize as opt
-    from ..matching.match import (Match, TemplateBank, _bucket,
-                                  _scene_candidates, prepare_templates)
-    from ..matching.pipeline import _bank_pairs_for_scene
+    from ..matching.match import _bank_on, _bucket, _scene_candidates
+    from ..matching.pipeline import _bank_pairs_for_scene, _host_matches
     dev = featuremap.angles.device
-    bank = templates if isinstance(templates, TemplateBank) \
-        else prepare_templates(templates, device=dev)
-    if bank.device != dev:
-        raise ValueError(f"template bank on {bank.device}, feature map on {dev}")
+    bank = _bank_on(templates, dev, "feature map")
     scene_arr = geo.as_lines_np(scene) if np.asarray(scene).size \
         else np.zeros((0, 4), np.float32)
     if not bank.host or scene_arr.shape[0] == 0 \
@@ -229,17 +225,14 @@ def search_spatial(searcher, optimizer, featuremap: fm.Dt3Featuremap,
         return []
     cand_lines, cand_mask, cand_align, transforms, ok = _scene_candidates(
         bank, pairs, scene_arr, _bucket(pairs.shape[0], 64))
-    mode, window = opt.optimizer_mode(optimizer)
     w, h = featuremap.feature_size
     probe = _RowProbe(stack, dev)
     scores, translations, valid = optimize_candidates_batch_kernel(
         probe, featuremap.angles, featuremap.scene_translation[None],
         torch.tensor([[float(w), float(h)]], device=dev), cand_lines[None],
-        cand_mask[None], cand_align[None], mode=mode, window=max(window, 1),
-        dense_steps=opt.dense_step_count(optimizer, max(w, h)),
-        cand_ok=ok[None], take=probe)
+        cand_mask[None], cand_align[None], cand_ok=ok[None], take=probe,
+        **opt._walk_args(optimizer, max(w, h)))
     mats = transforms.clone()
     mats[..., 2] += translations[0]
-    scores, mats, valid = (x.cpu().numpy() for x in (scores[0], mats, valid[0]))
-    return [Match(int(pairs[j // 2, 0]), float(scores[j]), mats[j].copy())
-            for j in range(2 * pairs.shape[0]) if valid[j]]
+    return _host_matches((pairs, *(x.cpu().numpy() for x in (scores[0], mats, valid[0]))),
+                         None, None, None)

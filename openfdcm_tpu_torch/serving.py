@@ -27,7 +27,7 @@ import torch
 
 from . import profiling
 from .matching import featuremap as fm
-from .matching.match import TemplateBank, prepare_templates
+from .matching.match import TemplateBank, _bank_on
 from .matching.pipeline import _call_device, match_many
 
 __all__ = ["MatcherService"]
@@ -48,12 +48,7 @@ class MatcherService:
                  max_batch_delay_s: float = 0.005, device=None):
         self.device = _call_device(mesh, device, "MatcherService")
         self.mesh = mesh
-        self.bank: TemplateBank = (
-            templates if isinstance(templates, TemplateBank)
-            else prepare_templates(templates, device=self.device))
-        if self.bank.device != self.device:
-            raise ValueError(f"template bank on {self.bank.device}, service on "
-                             f"{self.device}")
+        self.bank: TemplateBank = _bank_on(templates, self.device, "service")
         self.params = params
         self.searcher = searcher
         self.optimizer = optimizer

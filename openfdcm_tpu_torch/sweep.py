@@ -20,7 +20,7 @@ import numpy as np
 
 from .core.io import read_batch
 from .matching import featuremap as fm
-from .matching.match import Match
+from .matching.match import _matches, _ranked_rows
 from .matching.pipeline import _call_device, match_many
 
 __all__ = ["SweepState", "resumable_sweep"]
@@ -132,20 +132,20 @@ def resumable_sweep(scenes, templates, params: fm.Dt3Params, searcher,
             chunk_lengths = lengths_all[lo:hi]
         res = match_fn(scenes, chunk, chunk_lengths)
 
-        # fold the chunk's top-k into the running state
+        # fold the chunk's top-k into the running state, by (score, chunk, rank)
         new_mats = []
         for si, matches in enumerate(res):
             merged = state.rows[si] + [
                 (float(m.score), int(m.tmpl_idx) + lo, ci, r)
                 for r, m in enumerate(matches)]
-            mats_merged = list(state.mats[si][: len(state.rows[si])]) + [
-                np.asarray(m.transform, np.float32) for m in matches]
-            order = sorted(range(len(merged)),
-                           key=lambda i: (merged[i][0], merged[i][2],
-                                          merged[i][3]))[:top_k]
+            mats_merged = np.concatenate([
+                state.mats[si][: len(state.rows[si])],
+                np.asarray([m.transform for m in matches], np.float32).reshape(-1, 2, 3)])
+            score, _, chunk, rank = np.asarray(merged, np.float64).reshape(-1, 4).T
+            order = _ranked_rows(score, chunk, rank, ok=np.ones(len(merged), bool),
+                                 k=top_k)
             state.rows[si] = [merged[i] for i in order]
-            new_mats.append(np.stack([mats_merged[i] for i in order])
-                            if order else np.zeros((0, 2, 3), np.float32))
+            new_mats.append(mats_merged[order])
         kmax = max((m.shape[0] for m in new_mats), default=0)
         mats = np.zeros((len(scenes), kmax, 2, 3), np.float32)
         for si, m in enumerate(new_mats):
@@ -154,6 +154,5 @@ def resumable_sweep(scenes, templates, params: fm.Dt3Params, searcher,
         state.done_chunks = ci + 1
         state.save()
 
-    return [[Match(t, s, state.mats[si, j].copy())
-             for j, (s, t, _, _) in enumerate(state.rows[si])]
-            for si in range(len(scenes))]
+    tables = [np.asarray(rows, np.float64).reshape(-1, 4) for rows in state.rows]
+    return [_matches(t[:, 1], t[:, 0], state.mats[si]) for si, t in enumerate(tables)]
